@@ -1,0 +1,41 @@
+"""Carry state over from the JAX package, as numpy arrays, with no numeric
+change: the same map and cameras can then be rendered by both packages.
+
+The arrays come from the JAX package's `GaussianParams` / `Camera` fields
+(e.g. `{f: np.asarray(getattr(params, f)) for f in PARAM_FIELDS}`); this
+module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.cameras import Camera
+from .models.gaussian_model import GaussianParams
+from .utils.device import resolve_device
+
+PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+                "opacity", "n_active")
+CAMERA_TENSOR_FIELDS = ("R_cw", "t_cw", "fx", "fy", "tan_fovx", "tan_fovy",
+                        "cam_center", "K")
+
+
+def _tensor(a, dev):
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+
+def params_from_numpy(d, device="cuda") -> GaussianParams:
+    """A mapping of PARAM_FIELDS -> numpy arrays -> the port's GaussianParams."""
+    dev = resolve_device(device)
+    return GaussianParams(
+        **{f: _tensor(d[f], dev) for f in PARAM_FIELDS if f != "n_active"},
+        n_active=int(np.asarray(d["n_active"])))
+
+
+def camera_from_numpy(d, device="cuda") -> Camera:
+    """A mapping of the camera fields (the tensors plus int width/height)
+    -> the port's Camera."""
+    dev = resolve_device(device)
+    return Camera(**{f: _tensor(d[f], dev) for f in CAMERA_TENSOR_FIELDS},
+                  width=int(d["width"]), height=int(d["height"]))

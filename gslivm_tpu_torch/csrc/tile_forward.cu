@@ -1,0 +1,181 @@
+// K1: forward tile compositor for Hopper (sm_90a).
+//
+// Replaces the TPU kernel gslivm_tpu/ops/rasterize_pallas.py:_fwd_kernel
+// (launched by _fwd_call through pl.pallas_call), forward output only: the
+// chunk-start transmittance checkpoints that the backward kernel reads come
+// with the training slice.
+//
+// What it computes. One CUDA block per pixel block of pw x ph pixels (a
+// 16x16 tile, or a (16*block_x) x (16*block_y) supertile). The block walks
+// its tile's depth-sorted instance run, instances sorted_start[t] ..
+// sorted_start[t] + cnt_allowed[t] of the [L, 16] feature table, front to
+// back. Per instance and pixel:
+//   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  alpha = min(0.99, o e^power)
+//   accepted if power <= 0, alpha >= 1/255 and (supertile mode) the pixel
+//   lies inside the splat's 16x16 tile rect; a pixel is done once
+//   T (1 - alpha) < 1e-4, and that instance does not contribute.
+// Output per pixel, as [T, 8, npix]: C_r, C_g, C_b, D, A, T_final,
+// n_contrib (1-based position in the tile run of the last contributor),
+// neff (the first chunk of 128 at whose start every pixel of the block was
+// done; tile_nchunks[t] if that never happens). Out-of-image pixels of the
+// last supertile row are composited and vote like the TPU kernel's.
+//
+// What bounds it. Per (instance, pixel) pair it does ~15 flops and one exp
+// on data that sits in shared memory; it reads each instance once (64 B)
+// and writes 32 B per pixel. At 1080p the pair work dominates: it is bound
+// by operations (fp32 and the SFU exp), not by bytes.
+//
+// What the design does about it. The TPU kernel vectorised a chunk across
+// a (128 instances x npix) array with a multiplicative prefix scan; here
+// each thread composites its pixels sequentially over a batch of 128
+// instances staged in shared memory (8 KB, loaded with float4, coalesced),
+// which is the reference CUDA forward's order and needs no scan. Every
+// thread reads the same instance from shared memory (a broadcast), and the
+// per-pixel state stays in registers. npix can reach 2048 (block 2x4), so
+// each of the 256 threads owns npix/256 pixels (a template parameter). The
+// all-done vote before each batch is one __syncthreads_and, which is also
+// the barrier that protects the shared batch before it is overwritten.
+// CUDA blocks run in no order, so the TPU kernel's cross-program DMA baton
+// has no counterpart: each block reads its own run.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kChunk = 128;
+constexpr int kFeat = 16;
+constexpr int kThreads = 256;
+enum { FX = 0, FY, FA, FB, FC, FO, FR, FG, FB2, FD, FX0, FX1, FY0, FY1 };
+
+template <int PPT>
+__global__ void __launch_bounds__(kThreads)
+tile_forward_kernel(const float* __restrict__ inst,
+                    const int* __restrict__ sorted_start,
+                    const int* __restrict__ tile_nchunks,
+                    const int* __restrict__ cnt_allowed,
+                    float* __restrict__ out, int grid_x, int pw, int ph,
+                    int rect_test, int contrib_stats) {
+  __shared__ float4 batch[kChunk * kFeat / 4];
+  // the same f32 constants as the JAX kernel's python literals
+  const float kMinAlpha = (float)(1.0 / 255.0);
+  const float kMinT = (float)1e-4;
+  const int t = blockIdx.x;
+  const int npix = pw * ph;
+  const int tile_x = t % grid_x;
+  const int tile_y = t / grid_x;
+
+  float px[PPT], py[PPT], T[PPT], C0[PPT], C1[PPT], C2[PPT], D[PPT], A[PPT];
+  int N[PPT];
+  bool done[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    px[k] = (float)(tile_x * pw + p % pw);
+    py[k] = (float)(tile_y * ph + p / pw);
+    T[k] = 1.f;
+    C0[k] = C1[k] = C2[k] = D[k] = A[k] = 0.f;
+    N[k] = 0;
+    done[k] = false;
+  }
+
+  const int start = sorted_start[t];
+  const int nchunks = tile_nchunks[t];
+  const int count = cnt_allowed[t];
+  int neff = nchunks;
+  const float* feats = reinterpret_cast<const float*>(batch);
+
+  for (int i = 0; i < nchunks; ++i) {
+    bool mine = true;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) mine = mine && done[k];
+    if (__syncthreads_and(mine)) {
+      neff = i;
+      break;
+    }
+    const int m = min(kChunk, count - i * kChunk);
+    const float4* src = reinterpret_cast<const float4*>(
+        inst + (size_t)(start + i * kChunk) * kFeat);
+    for (int e = threadIdx.x; e < m * (kFeat / 4); e += kThreads) batch[e] = src[e];
+    __syncthreads();
+
+    for (int j = 0; j < m; ++j) {
+      const float* g = feats + j * kFeat;
+      const float gx = g[FX], gy = g[FY];
+      const float ca = g[FA], cb = g[FB], cc = g[FC], op = g[FO];
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        if (done[k]) continue;
+        const float dx = gx - px[k];
+        const float dy = gy - py[k];
+        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+        const float alpha = fminf(0.99f, op * expf(power));
+        bool accepted = power <= 0.f && alpha >= kMinAlpha;
+        if (rect_test)
+          accepted = accepted && px[k] >= g[FX0] && px[k] < g[FX1] &&
+                     py[k] >= g[FY0] && py[k] < g[FY1];
+        if (!accepted) continue;
+        const float T_next = T[k] * (1.f - alpha);
+        if (T_next < kMinT) {
+          done[k] = true;
+          continue;
+        }
+        const float w = alpha * T[k];
+        C0[k] += w * g[FR];
+        C1[k] += w * g[FG];
+        C2[k] += w * g[FB2];
+        D[k] += w * g[FD];
+        A[k] += w;
+        T[k] = T_next;
+        N[k] = i * kChunk + j + 1;
+      }
+    }
+  }
+
+  float* o = out + (size_t)t * 8 * npix;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    o[0 * npix + p] = C0[k];
+    o[1 * npix + p] = C1[k];
+    o[2 * npix + p] = C2[k];
+    o[3 * npix + p] = D[k];
+    o[4 * npix + p] = A[k];
+    o[5 * npix + p] = T[k];
+    o[6 * npix + p] = contrib_stats ? (float)N[k] : 0.f;
+    o[7 * npix + p] = (float)neff;
+  }
+}
+
+template <int PPT>
+void launch(const float* inst, const int* start, const int* nch, const int* cnt,
+            float* out, int num_tiles, int grid_x, int pw, int ph, int rect_test,
+            int contrib_stats, cudaStream_t stream) {
+  tile_forward_kernel<PPT><<<num_tiles, kThreads, 0, stream>>>(
+      inst, start, nch, cnt, out, grid_x, pw, ph, rect_test, contrib_stats);
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
+// for a pixel block that is not 256..2048 pixels in whole multiples of 256.
+extern "C" int tile_forward(const float* inst, const int* sorted_start,
+                            const int* tile_nchunks, const int* cnt_allowed,
+                            float* out, int num_tiles, int grid_x, int pw, int ph,
+                            int rect_test, int contrib_stats, void* stream) {
+  const int npix = pw * ph;
+  if (npix % kThreads != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_tiles > 0) {
+#define CASE(P)                                                                \
+  case P:                                                                      \
+    launch<P>(inst, sorted_start, tile_nchunks, cnt_allowed, out, num_tiles,   \
+              grid_x, pw, ph, rect_test, contrib_stats, s);                    \
+    break;
+    switch (npix / kThreads) {
+      CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef CASE
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,111 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by nvcc for Hopper (`sm_90a`) into a
+shared library with a plain C interface and loaded with ctypes. A library
+is named after a hash of its source, the nvcc flags and the nvcc version,
+under `gslivm_tpu_torch/build/`, so an edited source, flag or compiler
+rebuilds it and an unchanged one is reused. Nothing is built
+at import time: the first wrapper that launches a kernel on a CUDA tensor
+builds it, or a caller builds every kernel at once with `build()`, which
+runs one nvcc per source in parallel.
+
+Flags: -O3, no --use_fast_math (fast exp and flushed denormals would move
+the 1/255 alpha and 1e-4 transmittance decisions of the tile kernel);
+nvcc's default FMA contraction is kept.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD = Path(__file__).resolve().parent / "build"
+SOURCES = ("tile_forward", "blur")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry point and argument types of each library; every pointer and the
+# stream go as c_void_p (a plain int would be cut to 32 bits)
+_SIGNATURES = {
+    # inst, sorted_start, tile_nchunks, cnt_allowed, out, num_tiles, grid_x,
+    # pw, ph, rect_test, contrib_stats, stream
+    "tile_forward": ("tile_forward", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _I, _P]),
+    # x, y, n, h, w, taps (host float*), k, stream
+    "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _P]),
+}
+
+_FNS: dict = {}  # kernel name -> its loaded C entry point
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """`nvcc --version`, or "" where there is no nvcc (nothing is built then)."""
+    from torch.utils.cpp_extension import CUDA_HOME  # noqa: PLC0415
+
+    if CUDA_HOME is None:
+        return ""
+    return subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every named kernel whose library is missing, one nvcc per
+    source, all started together. Returns {name: compiler output} for the
+    libraries built by this call; raises if any build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
+    logs, failed = {}, []
+    for name, (proc, tmp, path) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode == 0:
+            os.replace(tmp, path)
+        else:
+            failed.append(name)
+    if failed:
+        detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+    return logs
+
+
+def library(name: str):
+    """The loaded C entry point of kernel `name`, built first if needed."""
+    if name not in _FNS:
+        build([name])
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(library_path(name))), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]

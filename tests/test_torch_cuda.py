@@ -1,0 +1,121 @@
+"""K1 and K3 on the card against their plain PyTorch versions, at small
+shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
+card with nvcc and skips elsewhere. Run on the card with:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gslivm_tpu_torch.models.cameras import make_camera
+from gslivm_tpu_torch.ops import blur, losses, rasterize, rasterize_reference, rasterize_tiles
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the K1/K3 kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _scene(rng, n, device):
+    q = rng.normal(size=(n, 4))
+    arrs = (rng.normal(0, 1.0, (n, 3)) + [0, 0, 4.0],
+            rng.uniform(0.02, 0.12, (n, 3)),
+            q / np.linalg.norm(q, axis=1, keepdims=True),
+            rng.uniform(0.2, 0.95, (n,)),
+            rng.uniform(-0.3, 0.8, (n, 1, 3)))
+    return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrs]
+
+
+@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+def test_k1_matches_plain_version(cuda, block):
+    rng = np.random.default_rng(0)
+    w, h = 160, 120  # the last supertile row overhangs the image
+    cam = make_camera(np.eye(3), np.zeros(3), w, h, fovx=1.0, fovy=0.8, device=cuda)
+    pre = rasterize_reference.preprocess(*_scene(rng, 3000, cuda), cam)
+    inst, binned, cfg = rasterize_tiles.prepare_tiles(
+        pre, w, h, max_instances=1 << 16, block_x=block[0], block_y=block[1])
+    args = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+    before = rasterize_tiles.composite_tiles.launches
+    k = rasterize_tiles.composite_tiles(*args)
+    torch.cuda.synchronize()
+    assert rasterize_tiles.composite_tiles.launches == before + 1
+    p = rasterize_tiles.composite_tiles_plain(*args)
+    assert int(binned.tile_nchunks.max()) > 1  # several chunks and the vote
+    # sequential compositing vs the plain version's prefix product: f32
+    # rounding only, 1e-3 of each row's scale (the gate of the JAX bench)
+    for row in range(6):
+        scale = max(float(p[:, row].abs().max()), 1.0)
+        assert float((k[:, row] - p[:, row]).abs().max()) / scale <= 1e-3, row
+    # integer rows: at most 0.1% may flip on a rounding at the 1e-4 stop
+    assert int((k[:, 6] != p[:, 6]).sum()) <= 1e-3 * k[:, 6].numel()
+    assert int((k[:, 7, 0] != p[:, 7, 0]).sum()) <= 1e-3 * cfg.num_tiles + 1
+
+
+def test_k1_vote_on_crafted_runs(cuda):
+    """Tile 0 saturates inside its first chunk (neff 1 of 3), tile 1's run
+    starts off a 128 boundary and never saturates (neff 2 of 2)."""
+    rng = np.random.default_rng(7)
+    cnt = torch.tensor([300, 200], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
+    nch = (cnt + 127) // 128
+    inst = torch.zeros((500, rasterize_tiles.FEAT), device=cuda)
+    inst[:, 0] = torch.as_tensor(rng.uniform(0, 32, 500), device=cuda)
+    inst[:, 1] = torch.as_tensor(rng.uniform(0, 16, 500), device=cuda)
+    inst[:, 2] = inst[:, 4] = 0.01
+    inst[:300, 5] = 0.95
+    inst[300:, 5] = 0.01
+    inst[:, 6:10] = torch.as_tensor(rng.uniform(0, 2, (500, 4)), device=cuda)
+    cfg = rasterize_tiles.TileConfig(grid_x=2, grid_y=1)
+    k = rasterize_tiles.composite_tiles(inst, start, nch, cnt, cfg)
+    p = rasterize_tiles.composite_tiles_plain(inst, start, nch, cnt, cfg)
+    assert k[:, 7, 0].tolist() == p[:, 7, 0].tolist() == [1.0, 2.0]
+    assert float((k[:, :6] - p[:, :6]).abs().max()) <= 1e-3 * max(float(p[:, :6].abs().max()), 1.0)
+
+
+def test_k3_matches_plain_version_and_vjp(cuda):
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.uniform(0, 1, (5, 70, 90)), dtype=torch.float32, device=cuda)
+    taps = losses.gaussian_1d()
+    before = blur.blur_cuda.launches
+    y = blur.blur_cuda(x, taps)
+    torch.cuda.synchronize()
+    assert blur.blur_cuda.launches == before + 1
+    assert float((y - blur.blur_plain(x, taps)).abs().max()) <= 1e-5
+    xg = x.clone().requires_grad_(True)
+    g = torch.rand_like(x)
+    (dx,) = torch.autograd.grad(blur.blur_many(xg, taps), xg, g)
+    xc = x.cpu().requires_grad_(True)
+    (dxc,) = torch.autograd.grad(blur.blur_plain(xc, taps), xc, g.cpu())
+    assert float((dx.cpu() - dxc).abs().max()) <= 1e-5
+
+
+def test_tiles_on_card_matches_naive_and_refuses_grads(cuda):
+    rng = np.random.default_rng(2)
+    cam = make_camera(np.eye(3), np.zeros(3), 64, 48, fovx=1.0, fovy=0.8, device=cuda)
+    scene = _scene(rng, 150, cuda)
+    with torch.no_grad():
+        tiles = rasterize.rasterize(*scene, cam)  # auto -> tiles on CUDA
+        naive = rasterize.rasterize(*scene, cam,
+                                    settings=rasterize.RasterizeSettings(backend="naive"))
+    for f in ("color", "depth", "acc"):
+        a, b = getattr(naive, f), getattr(tiles, f)
+        assert float((a - b).abs().max()) / max(float(a.abs().max()), 1.0) <= 1e-3, f
+    scene[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        rasterize.rasterize(*scene, cam)
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    cfg = rasterize_tiles.TileConfig(grid_x=1, grid_y=1)
+    inst = torch.zeros((128, 16), device=cuda)
+    i32 = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        rasterize_tiles.composite_tiles(inst, i32.long(), i32, i32, cfg)
+    with pytest.raises(ValueError, match="float32"):
+        blur.blur_cuda(torch.zeros((1, 8, 8), dtype=torch.float64, device=cuda), [1.0])

@@ -1,0 +1,99 @@
+"""The port stands alone: no module of gslivm_tpu_torch imports JAX, flax,
+optax or the JAX package, importing it loads none of them, and its entry
+points refuse to fall back to the CPU on their own."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import gslivm_tpu_torch
+
+PKG = pathlib.Path(gslivm_tpu_torch.__file__).parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gslivm_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _modules():
+    return sorted(PKG.rglob("*.py"))
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    assert len(_modules()) >= 15
+    bad = []
+    for path in _modules():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(PKG)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = [".".join(p.relative_to(PKG.parent).with_suffix("").parts)
+            for p in _modules()]
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "added = sorted(set(sys.modules) - before)\n"
+        "print('\\n'.join(added))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=120, check=True)
+    added = out.stdout.split()
+    assert "gslivm_tpu_torch.ops.rasterize_tiles" in added
+    assert not [m for m in added if _forbidden(m)]
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from gslivm_tpu_torch import convert
+    from gslivm_tpu_torch.models import cameras, gaussian_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cpu = gaussian_model.create_empty(3, device="cpu")
+    gaussian_model.save_ply(cpu, str(tmp_path / "m.ply"))
+    fields = {f: np.asarray(getattr(cpu, f).detach()) for f in convert.PARAM_FIELDS}
+    calls = [
+        lambda: cameras.make_camera(np.eye(3), np.zeros(3), 8, 8, fovx=1.0, fovy=1.0),
+        lambda: gaussian_model.create_empty(3),
+        lambda: gaussian_model.load_ply(str(tmp_path / "m.ply")),
+        lambda: convert.params_from_numpy(fields),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # and each runs when the caller asks for the CPU
+    assert gaussian_model.load_ply(str(tmp_path / "m.ply"), device="cpu").xyz.device.type == "cpu"
+
+
+def test_kernels_are_not_built_at_import():
+    from gslivm_tpu_torch import kernels
+
+    assert kernels._FNS == {}
+    assert set(kernels.SOURCES) == {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    for name in kernels.SOURCES:
+        assert kernels.library_path(name).name.startswith(f"lib{name}-")
+
+
+def test_library_name_follows_the_nvcc_flags(monkeypatch):
+    """An edited flag must rebuild a kernel, not reuse the old library."""
+    from gslivm_tpu_torch import kernels
+
+    before = {n: kernels.library_path(n) for n in kernels.SOURCES}
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", [*kernels.NVCC_FLAGS, "--use_fast_math"])
+    for name in kernels.SOURCES:
+        assert kernels.library_path(name) != before[name]
+        assert kernels.library_path(name).parent == before[name].parent
