@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and hold its
-hand-written CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and hold its hand-written CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -13,20 +13,43 @@ numpy.random.default_rng(0), in the JAX parameter layout, carried over with
 `convert.params_from_numpy`, written with `save_ply` and read back with
 `load_ply`.
 
+The training path: `training.train_step` at the JAX bench's production
+step shape (bench.py:196-218): the same map with its colours and positions
+perturbed by seeded noise, the three views (the last two a delta-depth
+history pair) with the served renders of the unperturbed map as ground
+truth and their cached SSIM statistics, 500 anchor points for simi_loss,
+default GsOptimParams and RasterizeSettings. One step renders each view
+through K1 with checkpoints, scores it with L1 + SSIM (K3 forward and
+backward), backpropagates through the backward tile kernel K2
+(`csrc/tile_backward.cu`) and preprocess, and takes a six-group Adam step.
+
 Phases print one JSON line each: env, build, reference (K1's plain version
 renders each view: the ground truth the views are scored against), serve
-(the main path, with every kernel launch counter set to 0 just before it
-and read just after), profile (torch.profiler over one served view: device
-busy time, idle share, kernels by device time), k1_parity, k3_parity. Then
-the card's name and power limit as nvidia-smi prints them, the kernels table
-as one JSON line, and last {"ok": true, "device": {...}}. Any failure raises and exits non-zero;
-without CUDA the script exits 1 and prints no result.
+(the serving path, with every kernel launch counter set to 0 just before
+it and read just after), profile (torch.profiler over one served view:
+device busy time, idle share, kernels by device time), k1_parity,
+k3_parity, train (10 steps of the training path; the counters are set to 0
+just before its first step and read just after), train_profile,
+k2_parity (K1's checkpoints and K2 against their plain versions at full
+size, with the cotangents of view 0's real loss), grad_parity (the tiles
+backend's parameter gradients against the naive backend's on a small
+scene). Then the card's name and power limit as nvidia-smi prints them,
+the kernels table as one JSON line, and last {"ok": true, "device": {...}}.
+Any failure raises and exits non-zero; without CUDA the script exits 1 and
+prints no result.
 
 Tolerances: K1 against its plain version, rows C, D, A, T: max abs
 deviation over max(|plain|, 1) per row <= 1e-3 (sequential compositing vs a
 prefix product in f32); at most 0.1% of pixels may differ in n_contrib and
-of tiles in neff (a rounding at the 1e-4 stop can move them). K3 against
-the plain shift-add: max abs <= 1e-5 (f32 sums of 121 taps, FMA allowed).
+of tiles in neff (a rounding at the 1e-4 stop can move them); checkpoints
+below neff: max abs <= 1e-3 with at most 0.1% of done flags flipped. K2
+against its plain version, per gradient row and per parameter gradient
+after the scatter and preprocess: max abs deviation over the plain
+version's max abs <= 1e-3 (pixel sums in another order, sequential T
+against a prefix product); the same gate holds the tiles backend's
+gradients against the naive backend's (the JAX bench's on-chip oracle
+gate, bench.py:220-228). K3 against the plain shift-add: max abs <= 1e-5
+(f32 sums of 121 taps, FMA allowed).
 """
 
 from __future__ import annotations
@@ -50,6 +73,12 @@ PEAK_F32 = 67e12
 # flops per (instance, pixel) pair that K1 walks: dx, dy (2), the conic
 # quadratic (9), exp (counted 2), alpha and its tests (2)
 K1_FLOPS_PER_PAIR = 15
+# K2 evaluates every walked pair once as K1 does (15), and for each
+# contributing pair forms psi (7), dL/dalpha (6), d opacity and d power (3),
+# u and v (2) and adds 10 gradient terms (12 more products): 30
+K2_FLOPS_PER_CONTRIB = 30
+TRAIN_STEPS = 10
+SIMI_SEED = 1
 
 
 def emit(phase: str, **fields):
@@ -67,6 +96,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scaled_err(a, b) -> float:
+    """max |a - b| over max |b| (b the plain version or the oracle)."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+
+def make_simi(rng):
+    """500 anchor points around the scene and 2048 gaussian indices, about
+    half of each masked in, as numpy arrays (SimiInputs fields)."""
+    return {"points": rng.normal(0, 2.0, (500, 3)) + [0, 0, 6.0],
+            "point_mask": rng.uniform(size=500) < 0.5,
+            "gauss_idx": rng.integers(0, N_GAUSS, 2048),
+            "gauss_mask": rng.uniform(size=2048) < 0.5}
 
 
 def make_map():
@@ -103,7 +146,7 @@ def main() -> int:
     from gslivm_tpu_torch.models.cameras import make_camera
     from gslivm_tpu_torch.ops import blur, losses, rasterize_reference, rasterize_tiles
     from gslivm_tpu_torch.ops.binning import CHUNK
-    from gslivm_tpu_torch.ops.rasterize import RasterizeSettings
+    from gslivm_tpu_torch.ops.rasterize import RasterizeSettings, rasterize
     from gslivm_tpu_torch.utils import metrics
 
     # ---- env ---------------------------------------------------------------
@@ -192,23 +235,31 @@ def main() -> int:
     # ---- profile: where one served view's device time goes -----------------
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = training.render_params(params, cams[0], bg, settings)
-        metrics.image_pair_metrics(out.color, refs[0]["color"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels_us = sorted(
-        ((getattr(e, "self_device_time_total", 0), e.key, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
-    busy_ms = sum(us for us, _, _ in kernels_us) / 1e3
-    emit("profile", view=0, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         idle_share=1.0 - busy_ms / wall_ms,
-         launches=sum(c for _, _, c in kernels_us),
-         top=[{"kernel": k[:100], "device_ms": us / 1e3, "calls": c}
-              for us, k, c in kernels_us[:12]])
+    def profiled(fn):
+        """Wall time, device busy time, idle share, launches and the top
+        kernels by device time of one fn() under torch.profiler."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side ranges of user annotations (e.g. Adam's step) span
+        # kernels that are listed on their own, so they are left out
+        kernels_us = sorted(
+            ((getattr(e, "self_device_time_total", 0), e.key, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)), reverse=True)
+        busy_ms = sum(us for us, _, _ in kernels_us) / 1e3
+        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                    idle_share=1.0 - busy_ms / wall_ms,
+                    launches=sum(c for _, _, c in kernels_us),
+                    top=[{"kernel": k[:100], "device_ms": us / 1e3, "calls": c}
+                         for us, k, c in kernels_us[:12]])
+
+    with torch.no_grad():
+        emit("profile", view=0, **profiled(lambda: metrics.image_pair_metrics(
+            training.render_params(params, cams[0], bg, settings).color, refs[0]["color"])))
 
     # ---- k1_parity: K1 vs its plain version, the same binned inputs --------
     k1_err, ncontrib_diff, neff_diff, pairs, inst_bytes = 0.0, 0, 0, 0, 0
@@ -276,6 +327,170 @@ def main() -> int:
          conv2d_max_abs_err=conv_err)
     assert k3_err <= 1e-5 and vjp_err <= 1e-5, (k3_err, vjp_err)
 
+    # ---- train: the training path, launch counters around its first step --
+    rng = np.random.default_rng(SIMI_SEED)
+    d = make_map()
+    d["features_dc"] = d["features_dc"] + 0.2 * rng.normal(size=d["features_dc"].shape)
+    d["xyz"] = d["xyz"] + 0.02 * rng.normal(size=d["xyz"].shape)
+    tparams = convert.params_from_numpy(d, device=dev)
+    optimizer = training.make_optimizer(tparams)
+    simi = convert.simi_from_numpy(make_simi(rng), device=dev)
+    gt = torch.stack([out.color for out in renders])  # K1 renders of the map
+    with torch.no_grad():
+        stats = [torch.stack(x) for x in zip(*(losses.ssim_ref_stats(g) for g in gt))]
+
+    def step(n_cams=len(cams)):
+        # the last two of three cameras are the delta-depth history pair
+        return training.train_step(tparams, optimizer, cams[:n_cams], gt[:n_cams], simi,
+                                   settings=settings, n_history_pairs=int(n_cams == 3),
+                                   gt_stats=[x[:n_cams] for x in stats])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rasterize_tiles.composite_tiles.launches = 0
+    rasterize_tiles.composite_tiles_bwd.launches = 0
+    blur.blur_cuda.launches = 0
+    history = [step()]
+    torch.cuda.synchronize()
+    train_launches = {"K1": rasterize_tiles.composite_tiles.launches,
+                      "K2": rasterize_tiles.composite_tiles_bwd.launches,
+                      "K3": blur.blur_cuda.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # one step: a K1 and a K2 per view, a forward and a backward K3 per view
+    assert train_launches == {"K1": 3, "K2": 3, "K3": 6}, train_launches
+    history += [step() for _ in range(TRAIN_STEPS - 1)]
+    steps = [{"loss": float(m.loss), "image_loss": float(m.image_loss),
+              "simi": float(m.simi), "delta": float(m.delta), "psnr": float(m.psnr),
+              "ssim": float(m.ssim), "overflow": int(m.overflow),
+              "num_instances": int(m.num_instances), "max_nchunks": int(m.max_nchunks),
+              "walked_chunks": int(m.walked_chunks)} for m in history]
+    assert all(r["overflow"] == 0 for r in steps), steps
+    assert all(np.isfinite(r["loss"]) for r in steps), steps
+    assert steps[-1]["loss"] < steps[0]["loss"], steps
+    step3_ms = cuda_ms(step, 5)
+    step1_ms = cuda_ms(lambda: step(1), 5)
+    emit("train", launches=train_launches, steps=steps, train_step3_ms=step3_ms,
+         train_step_ms=step1_ms, peak_memory_gb_step1=peak_gb)
+
+    # ---- train_profile: where one three-camera step's device time goes -----
+    emit("train_profile", cameras=3, **profiled(step))
+
+    # ---- k2_parity: K1's checkpoints and K2 at full size, view 0 -----------
+    pre = rasterize_reference.preprocess(
+        tparams.xyz, tparams.get_scaling(), tparams.get_rotation(),
+        tparams.get_opacity()[:, 0], tparams.get_features(), cams[0],
+        active_mask=tparams.active_mask())
+    table, binned, cfg = rasterize_tiles.bin_tiles(
+        pre, WIDTH, HEIGHT, max_instances=settings.max_instances,
+        max_chunks_per_tile=settings.max_chunks_per_tile,
+        capacity_slack=settings.capacity_slack, block_x=settings.block_x,
+        block_y=settings.block_y, contrib_stats=False)
+    contrib_pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    chunk_terms = rasterize_tiles._chunk_terms
+
+    def counting_chunk_terms(*a):
+        # the plain K1 calls this once per chunk of every tile group; tiles
+        # that are done or past their run contribute nothing, so the sum is
+        # the contributing (instance, pixel) pairs of this view
+        nonlocal contrib_pairs
+        m = chunk_terms(*a)
+        contrib_pairs = contrib_pairs + m.contrib.sum()
+        return m
+
+    with torch.no_grad():
+        inst = table.detach().t()[binned.gid_sorted.long()].contiguous()
+        kargs = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+        tiles, ckpt = rasterize_tiles.composite_tiles(*kargs, save_ckpt=True)
+        rasterize_tiles._chunk_terms = counting_chunk_terms
+        try:
+            ptiles, pckpt = rasterize_tiles.composite_tiles_plain(*kargs, save_ckpt=True)
+        finally:
+            rasterize_tiles._chunk_terms = chunk_terms
+        neff = tiles[:, 7, 0].long()
+        assert torch.equal(neff, ptiles[:, 7, 0].long())
+        walked_rows = torch.arange(cfg.max_chunks, device=dev)[None, :] < neff[:, None]
+        ckpt_err = float((ckpt.abs() - pckpt.abs())[walked_rows].abs().max())
+        flag_flips = int(((ckpt < 0) != (pckpt < 0))[walked_rows].sum())
+        del pckpt
+    # the cotangents of view 0's real loss, (1-λ)L1 + λ(1-SSIM), at K1's rows
+    tiles_g = tiles.clone().requires_grad_(True)
+    img = rasterize_tiles.tiles_to_image(tiles_g, cfg)[:, :HEIGHT, :WIDTH]
+    color = img[0:3] + img[5][None] * bg[:, None, None]
+    lam = training.GsOptimParams().lambda_dssim
+    view_loss = ((1.0 - lam) * losses.l1_loss(color, gt[0]) + lam * (
+        1.0 - losses.ssim(color, gt[0], ref_stats=(stats[0][0], stats[1][0]))))
+    (g_tiles,) = torch.autograd.grad(view_loss, tiles_g)
+    bwd_args = (inst, binned.sorted_start, binned.cnt_allowed, g_tiles.contiguous(),
+                tiles, ckpt, cfg, settings.depth_grad)
+    with torch.no_grad():
+        rows_k = rasterize_tiles.composite_tiles_bwd(*bwd_args)
+        rows_p = rasterize_tiles.composite_tiles_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        assert torch.equal(rows_k[:, rasterize_tiles._FID], rows_p[:, rasterize_tiles._FID])
+        k2_err = max(scaled_err(rows_k[:, c], rows_p[:, c]) for c in range(10))
+    leaves = {"xyz": tparams.xyz, "scaling": tparams.scaling, "rotation": tparams.rotation,
+              "opacity": tparams.opacity, "features_dc": tparams.features_dc}
+    n = table.shape[1]
+    gk = torch.autograd.grad(table, list(leaves.values()), rasterize_tiles.scatter_instance_grads(
+        rows_k, n, settings.depth_grad), retain_graph=True)
+    gp = torch.autograd.grad(table, list(leaves.values()), rasterize_tiles.scatter_instance_grads(
+        rows_p, n, settings.depth_grad))
+    param_err = {name: scaled_err(a, b) for name, a, b in zip(leaves, gk, gp)}
+    with torch.no_grad():
+        k1_fwd_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles(*kargs), 10)
+        ckpt_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles(*kargs, save_ckpt=True), 10)
+        k2_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles_bwd(*bwd_args), 10)
+        k2_plain_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles_bwd_plain(*bwd_args), 2)
+    walked_inst = int(torch.minimum(binned.cnt_allowed.long(), neff * CHUNK).sum())
+    walked_chunks = int(neff.sum())
+    k2_pairs = walked_inst * cfg.npix
+    k2_flops = k2_pairs * K1_FLOPS_PER_PAIR + int(contrib_pairs) * K2_FLOPS_PER_CONTRIB
+    # read once: cotangent rows C, D, A, T and T_final (7 per pixel), neff,
+    # the tile starts and counts, the walked checkpoint rows and instances;
+    # written once: the walked instances' gradient rows
+    k2_bytes = (cfg.num_tiles * (7 * cfg.npix + 3) * 4 + walked_chunks * cfg.npix * 4
+                + 2 * walked_inst * 4 * rasterize_tiles.FEAT)
+    k2_bound = max(k2_flops / PEAK_F32, k2_bytes / PEAK_BYTES) * 1e3
+    k2_bound_by = "operations" if k2_flops / PEAK_F32 >= k2_bytes / PEAK_BYTES else "bytes"
+    ckpt_bytes = cfg.num_tiles * cfg.max_chunks * cfg.npix * 4
+    emit("k2_parity", view=0, max_scaled_err=k2_err, param_scaled_err=param_err, tol=1e-3,
+         ckpt_max_abs_err=ckpt_err, ckpt_flag_flips=flag_flips,
+         ckpt_walked_values=int(walked_rows.sum()) * cfg.npix, k1_ms=k1_fwd_ms,
+         k1_ckpt_ms=ckpt_ms, ckpt_bytes_per_view=ckpt_bytes, kernel_ms=k2_ms,
+         plain_ms=k2_plain_ms, walked_pairs=k2_pairs, contrib_pairs=int(contrib_pairs),
+         walked_chunks=walked_chunks, flops=k2_flops, bytes=k2_bytes, bound_ms=k2_bound,
+         bound_by=k2_bound_by)
+    assert k2_err <= 1e-3 and max(param_err.values()) <= 1e-3, (k2_err, param_err)
+    assert ckpt_err <= 1e-3 and flag_flips <= 1e-3 * int(walked_rows.sum()) * cfg.npix
+    del tiles, ckpt, ptiles, rows_k, rows_p, table, pre
+
+    # ---- grad_parity: tiles vs naive gradients on a small scene ------------
+    grad_err = {}
+    for block in ((1, 1), (2, 2)):
+        rng = np.random.default_rng(2)
+        q = rng.normal(size=(3000, 4))
+        scene = [torch.as_tensor(a, dtype=torch.float32, device=dev).requires_grad_(True)
+                 for a in (rng.normal(0, 1.0, (3000, 3)) + [0, 0, 4.0],
+                           rng.uniform(0.02, 0.08, (3000, 3)),
+                           q / np.linalg.norm(q, axis=1, keepdims=True),
+                           rng.uniform(0.2, 0.95, 3000),
+                           rng.uniform(-0.3, 0.8, (3000, 1, 3)))]
+        scam = make_camera(np.eye(3), np.zeros(3), 160, 120, fovx=1.0, fovy=0.8, device=dev)
+        sgt = torch.as_tensor(rng.uniform(size=(3, 120, 160)), dtype=torch.float32, device=dev)
+        grads = {}
+        for backend in ("tiles", "naive"):
+            out = rasterize(*scene, scam, bg_color=torch.tensor([0.2, 0.5, 0.8], device=dev),
+                            settings=RasterizeSettings(backend=backend, block_x=block[0],
+                                                       block_y=block[1], max_instances=1 << 17))
+            loss = ((out.color - sgt) ** 2).sum() + 0.1 * out.acc.sum()
+            grads[backend] = torch.autograd.grad(loss, scene)
+        grad_err[f"{block[0]}x{block[1]}"] = {
+            name: scaled_err(a, b) for name, a, b in zip(
+                ("means", "scales", "quats", "opacities", "shs"),
+                grads["tiles"], grads["naive"])}
+    emit("grad_parity", scene="160x120, 3000 gaussians", tol=1e-3, scaled_err=grad_err)
+    assert max(e for blk in grad_err.values() for e in blk.values()) <= 1e-3, grad_err
+
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
     k3_bound_by = "bytes" if k3_bytes / PEAK_BYTES >= k3_flops / PEAK_F32 else "operations"
@@ -284,12 +499,22 @@ def main() -> int:
         {"name": "K1 tile_forward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_forward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:298",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": k1_mean, "plain_ms": k1_plain_mean,
+         "launches": launches["K1"] + train_launches["K1"],
+         "launches_serve": launches["K1"], "launches_train_step": train_launches["K1"],
+         "max_abs_err": k1_err, "ms": k1_mean, "ckpt_ms": ckpt_ms,
+         "plain_ms": k1_plain_mean,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
+        {"name": "K2 tile_backward", "route": "cuda",
+         "source": "gslivm_tpu_torch/csrc/tile_backward.cu",
+         "replaces": "gslivm_tpu/ops/rasterize_pallas.py:455",
+         "launches": train_launches["K2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
         {"name": "K3 blur", "route": "cuda", "source": "gslivm_tpu_torch/csrc/blur.cu",
          "replaces": "gslivm_tpu/ops/blur_pallas.py:34",
-         "launches": launches["K3"], "max_abs_err": k3_err,
+         "launches": launches["K3"] + train_launches["K3"],
+         "launches_serve": launches["K3"], "launches_train_step": train_launches["K3"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_bound_by, "library_ms": lib_ms},
     ]

@@ -13,6 +13,7 @@ import torch
 
 from .models.cameras import Camera
 from .models.gaussian_model import GaussianParams
+from .models.training import SimiInputs
 from .utils.device import resolve_device
 
 PARAM_FIELDS = ("xyz", "features_dc", "features_rest", "scaling", "rotation",
@@ -39,3 +40,14 @@ def camera_from_numpy(d, device="cuda") -> Camera:
     dev = resolve_device(device)
     return Camera(**{f: _tensor(d[f], dev) for f in CAMERA_TENSOR_FIELDS},
                   width=int(d["width"]), height=int(d["height"]))
+
+
+def simi_from_numpy(d, device="cuda") -> SimiInputs:
+    """A mapping of the SimiInputs fields -> numpy arrays (anchor points,
+    their mask, gaussian indices, their mask) -> the port's SimiInputs."""
+    dev = resolve_device(device)
+    return SimiInputs(
+        points=_tensor(d["points"], dev),
+        point_mask=torch.from_numpy(np.array(d["point_mask"], dtype=bool)).to(dev),
+        gauss_idx=torch.from_numpy(np.array(d["gauss_idx"], dtype=np.int32)).to(dev),
+        gauss_mask=torch.from_numpy(np.array(d["gauss_mask"], dtype=bool)).to(dev))

@@ -1,29 +1,30 @@
 // K1: forward tile compositor for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gslivm_tpu/ops/rasterize_pallas.py:_fwd_kernel
-// (launched by _fwd_call through pl.pallas_call), forward output only: the
-// chunk-start transmittance checkpoints that the backward kernel reads come
-// with the training slice.
+// (launched by _fwd_call through pl.pallas_call), including its optional
+// chunk-start transmittance checkpoints, which the backward kernel K2
+// (tile_backward.cu) reads.
 //
 // What it computes. One CUDA block per pixel block of pw x ph pixels (a
 // 16x16 tile, or a (16*block_x) x (16*block_y) supertile). The block walks
 // its tile's depth-sorted instance run, instances sorted_start[t] ..
 // sorted_start[t] + cnt_allowed[t] of the [L, 16] feature table, front to
-// back. Per instance and pixel:
-//   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  alpha = min(0.99, o e^power)
-//   accepted if power <= 0, alpha >= 1/255 and (supertile mode) the pixel
-//   lies inside the splat's 16x16 tile rect; a pixel is done once
-//   T (1 - alpha) < 1e-4, and that instance does not contribute.
-// Output per pixel, as [T, 8, npix]: C_r, C_g, C_b, D, A, T_final,
-// n_contrib (1-based position in the tile run of the last contributor),
-// neff (the first chunk of 128 at whose start every pixel of the block was
-// done; tile_nchunks[t] if that never happens). Out-of-image pixels of the
-// last supertile row are composited and vote like the TPU kernel's.
+// back, with the per-pair math of tile_common.cuh. Output per pixel, as
+// [T, 8, npix]: C_r, C_g, C_b, D, A, T_final, n_contrib (1-based position
+// in the tile run of the last contributor), neff (the first chunk of 128 at
+// whose start every pixel of the block was done; tile_nchunks[t] if that
+// never happens). Out-of-image pixels of the last supertile row are
+// composited and vote like the TPU kernel's. With ckpt non-null, the
+// transmittance at the start of every walked chunk i < neff goes to
+// ckpt[t, i, p] as T with the done flag in the sign bit (-T once the pixel
+// is done; T >= 1e-4 > 0 always), the JAX contract. Chunks from neff on are
+// not written.
 //
 // What bounds it. Per (instance, pixel) pair it does ~15 flops and one exp
 // on data that sits in shared memory; it reads each instance once (64 B)
-// and writes 32 B per pixel. At 1080p the pair work dominates: it is bound
-// by operations (fp32 and the SFU exp), not by bytes.
+// and writes 32 B per pixel (and 4 B per pixel per walked chunk with
+// checkpoints). At 1080p the pair work dominates: it is bound by
+// operations (fp32 and the SFU exp), not by bytes.
 //
 // What the design does about it. The TPU kernel vectorised a chunk across
 // a (128 instances x npix) array with a multiplicative prefix scan; here
@@ -38,14 +39,11 @@
 // CUDA blocks run in no order, so the TPU kernel's cross-program DMA baton
 // has no counterpart: each block reads its own run.
 
-#include <cuda_runtime.h>
+#include "tile_common.cuh"
 
 namespace {
 
-constexpr int kChunk = 128;
-constexpr int kFeat = 16;
-constexpr int kThreads = 256;
-enum { FX = 0, FY, FA, FB, FC, FO, FR, FG, FB2, FD, FX0, FX1, FY0, FY1 };
+using namespace tile;
 
 template <int PPT>
 __global__ void __launch_bounds__(kThreads)
@@ -53,12 +51,10 @@ tile_forward_kernel(const float* __restrict__ inst,
                     const int* __restrict__ sorted_start,
                     const int* __restrict__ tile_nchunks,
                     const int* __restrict__ cnt_allowed,
-                    float* __restrict__ out, int grid_x, int pw, int ph,
-                    int rect_test, int contrib_stats) {
+                    float* __restrict__ out, float* __restrict__ ckpt,
+                    int grid_x, int pw, int ph, int max_chunks, int rect_test,
+                    int contrib_stats) {
   __shared__ float4 batch[kChunk * kFeat / 4];
-  // the same f32 constants as the JAX kernel's python literals
-  const float kMinAlpha = (float)(1.0 / 255.0);
-  const float kMinT = (float)1e-4;
   const int t = blockIdx.x;
   const int npix = pw * ph;
   const int tile_x = t % grid_x;
@@ -92,6 +88,12 @@ tile_forward_kernel(const float* __restrict__ inst,
       neff = i;
       break;
     }
+    if (ckpt != nullptr && i < max_chunks) {
+      float* c = ckpt + ((size_t)t * max_chunks + i) * npix;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k)
+        c[threadIdx.x + k * kThreads] = done[k] ? -T[k] : T[k];
+    }
     const int m = min(kChunk, count - i * kChunk);
     const float4* src = reinterpret_cast<const float4*>(
         inst + (size_t)(start + i * kChunk) * kFeat);
@@ -100,26 +102,18 @@ tile_forward_kernel(const float* __restrict__ inst,
 
     for (int j = 0; j < m; ++j) {
       const float* g = feats + j * kFeat;
-      const float gx = g[FX], gy = g[FY];
-      const float ca = g[FA], cb = g[FB], cc = g[FC], op = g[FO];
+      const Splat s = load_splat(g);
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         if (done[k]) continue;
-        const float dx = gx - px[k];
-        const float dy = gy - py[k];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float alpha = fminf(0.99f, op * expf(power));
-        bool accepted = power <= 0.f && alpha >= kMinAlpha;
-        if (rect_test)
-          accepted = accepted && px[k] >= g[FX0] && px[k] < g[FX1] &&
-                     py[k] >= g[FY0] && py[k] < g[FY1];
-        if (!accepted) continue;
-        const float T_next = T[k] * (1.f - alpha);
-        if (T_next < kMinT) {
+        const Pair pr = eval_pair(s, px[k], py[k], rect_test);
+        if (!pr.accepted) continue;
+        const float T_next = next_T(T[k], pr.alpha);
+        if (T_next < TILE_MIN_T) {
           done[k] = true;
           continue;
         }
-        const float w = alpha * T[k];
+        const float w = weight(pr.alpha, T[k]);
         C0[k] += w * g[FR];
         C1[k] += w * g[FG];
         C2[k] += w * g[FB2];
@@ -148,28 +142,34 @@ tile_forward_kernel(const float* __restrict__ inst,
 
 template <int PPT>
 void launch(const float* inst, const int* start, const int* nch, const int* cnt,
-            float* out, int num_tiles, int grid_x, int pw, int ph, int rect_test,
-            int contrib_stats, cudaStream_t stream) {
+            float* out, float* ckpt, int num_tiles, int grid_x, int pw, int ph,
+            int max_chunks, int rect_test, int contrib_stats,
+            cudaStream_t stream) {
   tile_forward_kernel<PPT><<<num_tiles, kThreads, 0, stream>>>(
-      inst, start, nch, cnt, out, grid_x, pw, ph, rect_test, contrib_stats);
+      inst, start, nch, cnt, out, ckpt, grid_x, pw, ph, max_chunks, rect_test,
+      contrib_stats);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch; 1 (cudaErrorInvalidValue)
 // for a pixel block that is not 256..2048 pixels in whole multiples of 256.
+// ckpt may be null (no checkpoints); else it holds [num_tiles, max_chunks,
+// npix] floats and every tile_nchunks[t] <= max_chunks.
 extern "C" int tile_forward(const float* inst, const int* sorted_start,
                             const int* tile_nchunks, const int* cnt_allowed,
-                            float* out, int num_tiles, int grid_x, int pw, int ph,
-                            int rect_test, int contrib_stats, void* stream) {
+                            float* out, float* ckpt, int num_tiles, int grid_x,
+                            int pw, int ph, int max_chunks, int rect_test,
+                            int contrib_stats, void* stream) {
   const int npix = pw * ph;
   if (npix % kThreads != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_tiles > 0) {
 #define CASE(P)                                                                \
   case P:                                                                      \
-    launch<P>(inst, sorted_start, tile_nchunks, cnt_allowed, out, num_tiles,   \
-              grid_x, pw, ph, rect_test, contrib_stats, s);                    \
+    launch<P>(inst, sorted_start, tile_nchunks, cnt_allowed, out, ckpt,        \
+              num_tiles, grid_x, pw, ph, max_chunks, rect_test, contrib_stats, \
+              s);                                                              \
     break;
     switch (npix / kThreads) {
       CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)

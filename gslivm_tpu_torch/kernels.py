@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface and loaded with ctypes. A library
-is named after a hash of its source, the nvcc flags and the nvcc version,
-under `gslivm_tpu_torch/build/`, so an edited source, flag or compiler
-rebuilds it and an unchanged one is reused. Nothing is built
+is named after a hash of its source, the `csrc/` headers it includes, the
+nvcc flags and the nvcc version, under `gslivm_tpu_torch/build/`, so an
+edited source, header, flag or compiler rebuilds it and an unchanged one is
+reused. Nothing is built
 at import time: the first wrapper that launches a kernel on a CUDA tensor
 builds it, or a caller builds every kernel at once with `build()`, which
 runs one nvcc per source in parallel.
@@ -20,12 +21,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("tile_forward", "blur")
+SOURCES = ("tile_forward", "tile_backward", "blur")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -33,10 +35,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry point and argument types of each library; every pointer and the
 # stream go as c_void_p (a plain int would be cut to 32 bits)
 _SIGNATURES = {
-    # inst, sorted_start, tile_nchunks, cnt_allowed, out, num_tiles, grid_x,
-    # pw, ph, rect_test, contrib_stats, stream
-    "tile_forward": ("tile_forward", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _P]),
+    # inst, sorted_start, tile_nchunks, cnt_allowed, out, ckpt (or null),
+    # num_tiles, grid_x, pw, ph, max_chunks, rect_test, contrib_stats, stream
+    "tile_forward": ("tile_forward", [_P] * 6 + [_I] * 7 + [_P]),
+    # inst, sorted_start, cnt_allowed, g_tiles, fwd_tiles, ckpt, out,
+    # num_tiles, grid_x, pw, ph, max_chunks, rect_test, depth_grad, stream
+    "tile_backward": ("tile_backward", [_P] * 7 + [_I] * 7 + [_P]),
     # x, y, n, h, w, taps (host float*), k, stream
     "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _P]),
 }
@@ -63,8 +67,17 @@ def nvcc_version() -> str:
                           text=True, check=True, timeout=60).stdout
 
 
+def _local_headers(source: bytes) -> list[str]:
+    """The `csrc/` headers a source includes with #include "...", in order."""
+    return re.findall(r'^\s*#\s*include\s+"([^"]+)"', source.decode(), re.M)
+
+
 def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for header in _local_headers(src):
+        h.update(header.encode())
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(nvcc_version().encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"

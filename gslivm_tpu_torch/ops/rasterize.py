@@ -8,9 +8,11 @@ this restriction.
 Backends:
   - "naive": the O(P*pixels) torch oracle (rasterize_reference.py),
     differentiable by autograd.
-  - "tiles": tile-binned rendering through the K1 tile kernel
-    (rasterize_tiles.py); forward only in this slice, and it raises if a
-    gradient is asked of it. On CPU tensors it runs K1's plain version.
+  - "tiles": tile-binned rendering through the tile kernels
+    (rasterize_tiles.py): K1 forward and, for a gradient, K1 with
+    checkpoints and the backward kernel K2. On CPU tensors it runs their
+    plain versions. With depth_grad=False its backward skips the depth
+    term, whose cotangent the contract drops anyway.
   - "auto": "tiles" for CUDA tensors, "naive" otherwise.
 """
 
@@ -74,6 +76,7 @@ def _render_impl(settings: RasterizeSettings, camera, means, scales, quats,
             capacity_slack=settings.capacity_slack,
             block_x=settings.block_x,
             block_y=settings.block_y,
+            depth_grad=settings.depth_grad,
             contrib_stats=settings.contrib_stats,
         )
     raise ValueError(f"unknown rasterizer backend: {backend!r}")

@@ -1,19 +1,25 @@
-"""Tile rasterizer, forward (port of the forward half of
+"""Tile rasterizer, forward and backward (port of
 gslivm_tpu/ops/rasterize_pallas.py).
 
 Pipeline: preprocess -> bin_instances (supertile runs, depth-sorted) ->
 the [16, P] rank-ordered feature table -> gather into the sorted instance
-layout -> the tile compositor K1 (`csrc/tile_forward.cu`) -> image.
+layout -> the tile compositor K1 (`csrc/tile_forward.cu`) -> image. For a
+gradient, K1 also writes its chunk-start transmittance checkpoints, and
+the backward tile kernel K2 (`csrc/tile_backward.cu`) turns the image
+cotangents into one gradient row per instance; a per-gaussian `index_add_`
+over the rank id gives the table's gradient, and autograd carries it
+through the rank permutation and `preprocess` to the parameters.
 
-`composite_tiles` launches K1 on CUDA tensors and takes its plain PyTorch
-version `composite_tiles_plain` only for CPU tensors. The plain version
-repeats the TPU kernel's per-chunk math (`_chunk_terms`) vectorised over a
-group of tiles, including its Hillis-Steele prefix product, so that it is
-the closest CPU twin of the JAX kernel run in interpret mode.
+`composite_tiles` / `composite_tiles_bwd` launch K1 / K2 on CUDA tensors
+and take their plain PyTorch versions (`composite_tiles_plain`,
+`composite_tiles_bwd_plain`) only for CPU tensors. The plain versions
+repeat the TPU kernels' per-chunk math (`_chunk_terms`) vectorised over a
+group of tiles, including its Hillis-Steele prefix scans, so that they are
+the closest CPU twins of the JAX kernels run in interpret mode.
 
-This slice renders forward only: the backward tile kernel (K2) and the
-forward's chunk-start checkpoints come with the training slice, and
-`rasterize_tiles` raises when a gradient is asked of it.
+The JAX kernels' CHUNK-aligned gradient layout (`pad_cols`/`poff`) and its
+compacted variant (`grad_cols`) serve the TPU's aligned DMA writes and its
+per-index scatter cost; K2 writes each instance's row in place instead.
 """
 
 from __future__ import annotations
@@ -37,9 +43,9 @@ FEAT = 16  # packed instance feature columns (15 used)
 # pixels, used only in supertile mode (the per-pixel rect test)
 (_FX, _FY, _FA, _FB, _FC, _FO, _FR, _FG, _FB2, _FD,
  _FX0, _FX1, _FY0, _FY1) = range(14)
-_FID = 14  # the column's own rank id (exact f32), for the training slice's
-           # gradient scatter
-# the plain compositor steps as many tiles at once as keep one [tiles, CHUNK,
+_FID = 14  # the column's own rank id (exact f32): K2 copies it into its
+           # gradient rows, and the per-gaussian scatter indexes by it
+# the plain compositors step as many tiles at once as keep one [tiles, CHUNK,
 # npix] f32 array within this many elements (64 MB), so that a 1080p frame
 # fits on the card
 _PLAIN_GROUP_ELEMENTS = 1 << 24
@@ -55,6 +61,7 @@ class TileConfig(NamedTuple):
     ph: int = TILE
     rect_test: bool = False      # supertile mode: per-pixel tile-rect test
     contrib_stats: bool = True   # False renders n_contrib as zeros
+    max_chunks: int = 64         # checkpoint rows per tile (>= tile_nchunks)
 
     @property
     def num_tiles(self) -> int:
@@ -65,11 +72,28 @@ class TileConfig(NamedTuple):
         return self.pw * self.ph
 
 
+class _PermuteCols(torch.autograd.Function):
+    """x[:, order] whose backward is a gather by the inverse permutation
+    (rasterize_pallas.py:_permute_cols), not a scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, order):
+        ctx.save_for_backward(order)
+        return x[:, order]
+
+    @staticmethod
+    def backward(ctx, g):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return g[:, inv], None
+
+
 def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = False):
     """The [FEAT, P] per-gaussian screen-feature table in DEPTH-RANK column
-    order. rect_rows appends the 4 tile-rect pixel bounds (supertile mode's
-    rect test) as exact f32 values; row _FID is the column's rank id.
-    Invalid gaussians enter with opacity 0."""
+    order (differentiable). rect_rows appends the 4 tile-rect pixel bounds
+    (supertile mode's rect test) as exact f32 values; row _FID is the
+    column's rank id. Invalid gaussians enter with opacity 0."""
     rows = [
         pre.mean2d[:, 0],
         pre.mean2d[:, 1],
@@ -90,7 +114,7 @@ def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = Fals
             (pre.rect_max[:, 1] * TILE).to(torch.float32),
         ]
     n = dorder.shape[0]
-    table = torch.stack(rows, dim=0)[:, dorder.long()]
+    table = _PermuteCols.apply(torch.stack(rows, dim=0), dorder.long())
     zeros = table.new_zeros
     return torch.cat([
         table,
@@ -100,25 +124,47 @@ def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = Fals
     ], dim=0)
 
 
-def _cumprod_rows(x, exclusive: bool):
-    """Prefix product along dim 1 of a [G, CHUNK, npix] array: the TPU
-    kernel's multiplicative Hillis-Steele scan (ones-filled shifts)."""
+def _scan_rows(x, op, fill: float):
+    """Inclusive scan along dim 1 of a [G, CHUNK, npix] array: the TPU
+    kernel's Hillis-Steele scan (shifts filled with the identity)."""
     n = x.shape[1]
     s = 1
     while s < n:
-        x = x * torch.cat([torch.ones_like(x[:, :s]), x[:, :n - s]], dim=1)
+        x = op(x, torch.cat([torch.full_like(x[:, :s], fill), x[:, :n - s]], dim=1))
         s *= 2
-    if exclusive:
-        x = torch.cat([torch.ones_like(x[:, :1]), x[:, :-1]], dim=1)
     return x
 
 
-def _chunk_terms(feat, px, py, T_in, done_in, rect_test: bool):
-    """One chunk of the TPU kernel's math (rasterize_pallas.py:_chunk_terms),
+def _cumprod_excl(x):
+    """Exclusive prefix product along dim 1 (rasterize_pallas._cumprod_rows)."""
+    x = _scan_rows(x, torch.mul, 1.0)
+    return torch.cat([torch.ones_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _suffix_excl(x):
+    """Sum over strictly later rows along dim 1: S[k] = sum_{j>k} x[j]
+    (rasterize_pallas._suffix_excl: the total minus the inclusive scan)."""
+    return x.sum(dim=1, keepdim=True) - _scan_rows(x, torch.add, 0.0)
+
+
+class _Chunk(NamedTuple):
+    dx: torch.Tensor         # [G, CHUNK, npix]
+    dy: torch.Tensor
+    G: torch.Tensor          # exp(power)
+    raw_alpha: torch.Tensor  # opacity * G
+    alpha: torch.Tensor      # min(0.99, raw_alpha)
+    contrib: torch.Tensor
+    w: torch.Tensor          # alpha * T_prev where contrib, else 0
+    T_prev: torch.Tensor
+    T_out: torch.Tensor      # [G, 1, npix]
+    done_out: torch.Tensor
+
+
+def _chunk_terms(feat, px, py, T_in, done_in, rect_test: bool) -> _Chunk:
+    """One chunk of the TPU kernels' math (rasterize_pallas.py:_chunk_terms),
     for a group of tiles at once.
 
     feat: [G, CHUNK, FEAT]; px/py: [G, 1, npix]; T_in/done_in: [G, 1, npix].
-    Returns (w [G, CHUNK, npix], contrib, T_out [G, 1, npix], done_out).
     """
     def col(i):
         return feat[:, :, i, None]
@@ -126,15 +172,16 @@ def _chunk_terms(feat, px, py, T_in, done_in, rect_test: bool):
     dx = col(_FX) - px
     dy = col(_FY) - py
     power = -0.5 * (col(_FA) * dx * dx + col(_FC) * dy * dy) - col(_FB) * dx * dy
-    alpha = torch.clamp(col(_FO) * torch.exp(power), max=0.99)
+    G = torch.exp(power)
+    raw_alpha = col(_FO) * G
+    alpha = torch.clamp(raw_alpha, max=0.99)
     accepted = (power <= 0.0) & (alpha >= 1.0 / 255.0)
     if rect_test:
         accepted = (accepted & (px >= col(_FX0)) & (px < col(_FX1))
                     & (py >= col(_FY0)) & (py < col(_FY1)))
-    one = torch.ones_like(alpha)
-    one_minus_eff = torch.where(accepted, 1.0 - alpha, one)
+    one_minus_eff = torch.where(accepted, 1.0 - alpha, torch.ones_like(alpha))
 
-    T_prev = T_in * _cumprod_rows(one_minus_eff, exclusive=True)
+    T_prev = T_in * _cumprod_excl(one_minus_eff)
     T_next = T_prev * (1.0 - alpha)
     would_stop = accepted & (T_next < 1e-4)
     # the early-stop latch needs no scan: once T_prev*(1-alpha) < 1e-4 fires,
@@ -143,25 +190,50 @@ def _chunk_terms(feat, px, py, T_in, done_in, rect_test: bool):
     w = torch.where(contrib, alpha * T_prev, torch.zeros_like(alpha))
     T_out = torch.where(contrib, T_next, T_in.expand_as(T_next)).amin(dim=1, keepdim=True)
     done_out = done_in | would_stop.any(dim=1, keepdim=True)
-    return w, contrib, T_out, done_out
+    return _Chunk(dx, dy, G, raw_alpha, alpha, contrib, w, T_prev, T_out, done_out)
+
+
+def _pixel_coords(t, cfg: TileConfig):
+    """[G, 1, npix] f32 pixel coordinates of tiles t (row-major blocks)."""
+    p = torch.arange(cfg.npix, device=t.device)
+    px = ((t % cfg.grid_x)[:, None] * cfg.pw + p % cfg.pw).to(torch.float32)[:, None]
+    py = ((t // cfg.grid_x)[:, None] * cfg.ph + p // cfg.pw).to(torch.float32)[:, None]
+    return px, py
+
+
+def _chunk_feats(inst, start, cnt, i: int, mask=None):
+    """Chunk i of each tile's run as [G, CHUNK, FEAT] (rows past the run, or
+    of tiles outside `mask`, are zero) and their slots in `inst`."""
+    j = torch.arange(CHUNK, device=inst.device)
+    live = j[None, :] < (cnt - i * CHUNK)[:, None]
+    if mask is not None:
+        live = live & mask[:, None]
+    idx = torch.where(live, start[:, None] + i * CHUNK + j, 0)
+    return torch.where(live[..., None], inst[idx], 0.0), idx, live
 
 
 def composite_tiles_plain(inst, sorted_start, tile_nchunks, cnt_allowed,
-                          cfg: TileConfig):
+                          cfg: TileConfig, save_ckpt: bool = False):
     """The plain PyTorch version of K1: [L, FEAT] sorted instances ->
-    [T, 8, npix] rows (C_r, C_g, C_b, D, A, T_final, n_contrib, neff).
+    [T, 8, npix] rows (C_r, C_g, C_b, D, A, T_final, n_contrib, neff), and
+    with save_ckpt also the [T, max_chunks, npix] chunk-start checkpoints
+    (T, negated once the pixel is done; rows of unwalked chunks are 0).
 
     A loop over chunk index, vectorised over a group of tiles at a time."""
     dev = inst.device
-    T_all, npix, pw = cfg.num_tiles, cfg.npix, cfg.pw
+    T_all, npix = cfg.num_tiles, cfg.npix
     group = max(1, _PLAIN_GROUP_ELEMENTS // (CHUNK * npix))
     out = torch.empty((T_all, 8, npix), dtype=torch.float32, device=dev)
-    p = torch.arange(npix, device=dev)
+    ckpt = None
+    if save_ckpt:
+        if T_all and int(tile_nchunks.max()) > cfg.max_chunks:
+            raise ValueError(f"tile_nchunks exceeds max_chunks={cfg.max_chunks}")
+        ckpt = torch.zeros((T_all, cfg.max_chunks, npix), dtype=torch.float32,
+                           device=dev)
     j = torch.arange(CHUNK, device=dev)
     for g0 in range(0, T_all, group):
         t = torch.arange(g0, min(g0 + group, T_all), device=dev)
-        px = ((t % cfg.grid_x)[:, None] * pw + p % pw).to(torch.float32)[:, None]
-        py = ((t // cfg.grid_x)[:, None] * cfg.ph + p // pw).to(torch.float32)[:, None]
+        px, py = _pixel_coords(t, cfg)
         start = sorted_start[t].long()
         nch = tile_nchunks[t].long()
         cnt = cnt_allowed[t].long()
@@ -175,74 +247,253 @@ def composite_tiles_plain(inst, sorted_start, tile_nchunks, cnt_allowed,
             has = i < nch
             neff = torch.where((neff < 0) & all_done & has, i, neff)
             work = (has & ~all_done)[:, None, None]
-            live = j[None, :] < (cnt - i * CHUNK)[:, None]
-            idx = torch.where(live, start[:, None] + i * CHUNK + j, 0)
-            feat = torch.where(live[..., None], inst[idx], 0.0)
-            w, contrib, T_out, done_out = _chunk_terms(
-                feat, px, py, T, done, cfg.rect_test)
+            if ckpt is not None:
+                rows = ckpt[g0:g0 + len(t), i]
+                ckpt[g0:g0 + len(t), i] = torch.where(
+                    work[:, 0], torch.where(done, -T, T)[:, 0], rows)
+            feat, _, _ = _chunk_feats(inst, start, cnt, i)
+            m = _chunk_terms(feat, px, py, T, done, cfg.rect_test)
 
             def add(acc, c):
-                return torch.where(work, acc + (w * feat[:, :, c, None]).sum(1, keepdim=True), acc)
+                return torch.where(work, acc + (m.w * feat[:, :, c, None]).sum(1, keepdim=True), acc)
 
             C0, C1, C2, D = add(C0, _FR), add(C1, _FG), add(C2, _FB2), add(D, _FD)
-            A = torch.where(work, A + w.sum(1, keepdim=True), A)
+            A = torch.where(work, A + m.w.sum(1, keepdim=True), A)
             if cfg.contrib_stats:
                 pos = (j + i * CHUNK + 1).to(torch.float32)[None, :, None]
-                best = torch.where(contrib, pos, 0.0).amax(dim=1, keepdim=True)
+                best = torch.where(m.contrib, pos, 0.0).amax(dim=1, keepdim=True)
                 N = torch.where(work, torch.maximum(N, best), N)
-            T = torch.where(work, T_out, T)
-            done = torch.where(work, done_out, done)
+            T = torch.where(work, m.T_out, T)
+            done = torch.where(work, m.done_out, done)
         neff = torch.where(neff < 0, nch, neff).to(torch.float32)
         out[g0:g0 + len(t)] = torch.cat(
             [C0, C1, C2, D, A, T, N, neff[:, None, None].expand_as(T)], dim=1)
-    return out
+    return (out, ckpt) if save_ckpt else out
 
 
-def composite_tiles(inst, sorted_start, tile_nchunks, cnt_allowed,
-                    cfg: TileConfig):
-    """K1 wrapper: composite every tile's sorted instance run.
+def _check_int_rows(nt: int, device, **rows):
+    for name, v in rows.items():
+        if (v.device != device or v.dtype != torch.int32
+                or tuple(v.shape) != (nt,) or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 [{nt}] tensor "
+                             f"on {device}")
 
-    inst: [L, FEAT] float32 (the sorted instance features); sorted_start,
-    tile_nchunks, cnt_allowed: [T] int32. Returns [T, 8, npix] float32.
-    CPU tensors take the plain version; CUDA tensors launch the kernel on
-    the current stream, or raise.
-    """
-    if not inst.is_cuda:
-        return composite_tiles_plain(inst, sorted_start, tile_nchunks,
-                                     cnt_allowed, cfg)
-    nt = cfg.num_tiles
+
+def _check_inst_and_block(inst, cfg: TileConfig):
     if inst.dtype != torch.float32 or inst.dim() != 2 or inst.shape[1] != FEAT:
         raise ValueError(f"inst must be float32 [L, {FEAT}], got "
                          f"{inst.dtype} {tuple(inst.shape)}")
     if not inst.is_contiguous() or inst.data_ptr() % 16:
         raise ValueError("inst must be contiguous and 16-byte aligned")
-    for name, v in (("sorted_start", sorted_start),
-                    ("tile_nchunks", tile_nchunks),
-                    ("cnt_allowed", cnt_allowed)):
-        if (v.device != inst.device or v.dtype != torch.int32
-                or tuple(v.shape) != (nt,) or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 [{nt}] tensor "
-                             f"on {inst.device}")
     if cfg.npix % 256 or not 1 <= cfg.npix // 256 <= 8:
         raise ValueError(f"pixel block {cfg.pw}x{cfg.ph} is not 256..2048 "
                          "pixels in multiples of 256")
+
+
+def composite_tiles(inst, sorted_start, tile_nchunks, cnt_allowed,
+                    cfg: TileConfig, save_ckpt: bool = False):
+    """K1 wrapper: composite every tile's sorted instance run.
+
+    inst: [L, FEAT] float32 (the sorted instance features); sorted_start,
+    tile_nchunks, cnt_allowed: [T] int32, every tile_nchunks <= cfg.max_chunks
+    (binning caps them). Returns [T, 8, npix] float32, and with save_ckpt
+    also the [T, max_chunks, npix] chunk-start checkpoints (rows of
+    unwalked chunks are left unwritten on the card). CPU tensors take the
+    plain version; CUDA tensors launch the kernel on the current stream,
+    or raise.
+    """
+    if not inst.is_cuda:
+        return composite_tiles_plain(inst, sorted_start, tile_nchunks,
+                                     cnt_allowed, cfg, save_ckpt)
+    nt = cfg.num_tiles
+    _check_inst_and_block(inst, cfg)
+    _check_int_rows(nt, inst.device, sorted_start=sorted_start,
+                    tile_nchunks=tile_nchunks, cnt_allowed=cnt_allowed)
     out = torch.empty((nt, 8, cfg.npix), dtype=torch.float32, device=inst.device)
+    ckpt = (torch.empty((nt, cfg.max_chunks, cfg.npix), dtype=torch.float32,
+                        device=inst.device) if save_ckpt else None)
     fn = kernels.library("tile_forward")
     with torch.cuda.device(inst.device):
         err = fn(inst.data_ptr(), sorted_start.data_ptr(), tile_nchunks.data_ptr(),
-                 cnt_allowed.data_ptr(), out.data_ptr(), nt, cfg.grid_x, cfg.pw,
-                 cfg.ph, int(cfg.rect_test), int(cfg.contrib_stats),
-                 torch.cuda.current_stream().cuda_stream)
+                 cnt_allowed.data_ptr(), out.data_ptr(),
+                 ckpt.data_ptr() if save_ckpt else None, nt, cfg.grid_x, cfg.pw,
+                 cfg.ph, cfg.max_chunks, int(cfg.rect_test),
+                 int(cfg.contrib_stats), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"tile_forward kernel launch failed: CUDA error {err}")
     composite_tiles.launches += 1
-    return out
+    return (out, ckpt) if save_ckpt else out
 
 
 composite_tiles.launches = 0  # K1 launches since the last reset
 
 
-def prepare_tiles(
+def composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed, g_tiles,
+                              fwd_tiles, ckpt, cfg: TileConfig,
+                              depth_grad: bool = True):
+    """The plain PyTorch version of K2 (rasterize_pallas.py:_bwd_kernel):
+    the cotangents g_tiles [T, 8, npix] of K1's rows, K1's output fwd_tiles
+    and its checkpoints ckpt -> one gradient row per instance, [L, FEAT]:
+    d mean2d (2), d conic (3), d opacity, d rgb (3), d depth (0 without
+    depth_grad), zeros, the rank id in column _FID. Rows of instances in
+    unwalked chunks (from each tile's neff on) are zero with id 0.
+
+    Each tile's chunks are walked from neff-1 down, vectorised over a group
+    of tiles, with the JAX kernel's prefix product, suffix scan and pixel
+    sums."""
+    dev = inst.device
+    T_all, npix = cfg.num_tiles, cfg.npix
+    group = max(1, _PLAIN_GROUP_ELEMENTS // (CHUNK * npix))
+    out = torch.zeros((inst.shape[0], FEAT), dtype=torch.float32, device=dev)
+    neff_all = fwd_tiles[:, 7, 0].long()
+    for g0 in range(0, T_all, group):
+        t = torch.arange(g0, min(g0 + group, T_all), device=dev)
+        px, py = _pixel_coords(t, cfg)
+        start, cnt, neff = sorted_start[t].long(), cnt_allowed[t].long(), neff_all[t]
+        g = g_tiles[t]
+        gC0, gC1, gC2, gD, gA = (g[:, r:r + 1] for r in range(5))
+        gTT = g[:, 5:6] * fwd_tiles[t, 5:6]
+        Wpsi = torch.zeros_like(px)
+        for i in reversed(range(int(neff.max()) if len(t) else 0)):
+            work = i < neff
+            feat, idx, live = _chunk_feats(inst, start, cnt, i, mask=work)
+            T_signed = ckpt[t, i][:, None]
+            m = _chunk_terms(feat, px, py, T_signed.abs(), T_signed < 0.0,
+                             cfg.rect_test)
+
+            def col(c):
+                return feat[:, :, c, None]
+
+            # the five per-output cotangents enter dL/dalpha only through
+            # psi = gC . rgb + gA (+ gD d): one fused suffix sum of w * psi
+            psi = gC0 * col(_FR) + gC1 * col(_FG) + gC2 * col(_FB2) + gA
+            if depth_grad:
+                psi = psi + gD * col(_FD)
+            S = _suffix_excl(m.w * psi) + Wpsi
+            inv = 1.0 / torch.clamp(1.0 - m.alpha, min=1e-6)
+            dLda = torch.where(m.contrib, m.T_prev * psi - (S + gTT) * inv, 0.0)
+            # min(0.99, .) subgradient gate (rasterize_pallas.py module doc)
+            not_clamped = m.raw_alpha < 0.99
+            d_op = torch.where(not_clamped, m.G, 0.0) * dLda
+            d_power = torch.where(not_clamped, col(_FO), 0.0) * dLda * m.G
+            u = d_power * m.dx
+            v = d_power * m.dy
+
+            def psum(x):
+                return x.sum(dim=2)
+
+            su, sv = psum(u), psum(v)
+            ca, cb, cc = feat[:, :, _FA], feat[:, :, _FB], feat[:, :, _FC]
+            zero = torch.zeros_like(su)
+            rows = torch.stack([
+                -(ca * su + cb * sv),          # d mean2d.x
+                -(cc * sv + cb * su),          # d mean2d.y
+                -0.5 * psum(u * m.dx),         # d conic a
+                -psum(u * m.dy),               # d conic b
+                -0.5 * psum(v * m.dy),         # d conic c
+                psum(d_op),                    # d opacity
+                psum(gC0 * m.w),               # d color r
+                psum(gC1 * m.w),               # d color g
+                psum(gC2 * m.w),               # d color b
+                psum(gD * m.w) if depth_grad else zero,  # d depth
+                zero, zero, zero, zero,
+                feat[:, :, _FID],              # the rank id
+                zero,
+            ], dim=2)
+            out[idx[live]] = rows[live]
+            Wpsi = torch.where(work[:, None, None],
+                               Wpsi + (m.w * psi).sum(dim=1, keepdim=True), Wpsi)
+    return out
+
+
+def composite_tiles_bwd(inst, sorted_start, cnt_allowed, g_tiles, fwd_tiles,
+                        ckpt, cfg: TileConfig, depth_grad: bool = True):
+    """K2 wrapper: per-instance gradient rows [L, FEAT] from the cotangents
+    g_tiles [T, 8, npix] of K1's output fwd_tiles and K1's checkpoints ckpt
+    [T, max_chunks, npix] (see composite_tiles_bwd_plain). CPU tensors take
+    the plain version; CUDA tensors launch the kernel on the current
+    stream, or raise."""
+    if not inst.is_cuda:
+        return composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed,
+                                         g_tiles, fwd_tiles, ckpt, cfg,
+                                         depth_grad)
+    nt = cfg.num_tiles
+    _check_inst_and_block(inst, cfg)
+    _check_int_rows(nt, inst.device, sorted_start=sorted_start,
+                    cnt_allowed=cnt_allowed)
+    for name, v, rows in (("g_tiles", g_tiles, 8), ("fwd_tiles", fwd_tiles, 8),
+                          ("ckpt", ckpt, cfg.max_chunks)):
+        if (v.device != inst.device or v.dtype != torch.float32
+                or tuple(v.shape) != (nt, rows, cfg.npix) or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"[{nt}, {rows}, {cfg.npix}] tensor on {inst.device}")
+    out = torch.zeros((inst.shape[0], FEAT), dtype=torch.float32, device=inst.device)
+    fn = kernels.library("tile_backward")
+    with torch.cuda.device(inst.device):
+        err = fn(inst.data_ptr(), sorted_start.data_ptr(), cnt_allowed.data_ptr(),
+                 g_tiles.data_ptr(), fwd_tiles.data_ptr(), ckpt.data_ptr(),
+                 out.data_ptr(), nt, cfg.grid_x, cfg.pw, cfg.ph, cfg.max_chunks,
+                 int(cfg.rect_test), int(depth_grad),
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"tile_backward kernel launch failed: CUDA error {err}")
+    composite_tiles_bwd.launches += 1
+    return out
+
+
+composite_tiles_bwd.launches = 0  # K2 launches since the last reset
+
+
+def scatter_instance_grads(rows, num_gaussians: int, depth_grad: bool = True):
+    """Per-instance gradient rows [L, FEAT] -> the rank table's gradient
+    [FEAT, P]: rows summed per gaussian by the rank id in column _FID
+    (rasterize_pallas._render_from_table_bwd). Unwalked rows carry id 0
+    and zero gradients."""
+    ndg = 10 if depth_grad else 9  # the depth row is skipped with depth_grad
+    dg = rows.new_zeros((num_gaussians, ndg)).index_add_(
+        0, rows[:, _FID].long(), rows[:, :ndg])
+    return torch.cat([dg.t(), rows.new_zeros((FEAT - ndg, num_gaussians))], dim=0)
+
+
+class _RenderFromTable(torch.autograd.Function):
+    """The tile render as one differentiable function of the rank table
+    (rasterize_pallas._render_from_table with its custom VJP): K1 with
+    checkpoints forward, K2 and the per-gaussian scatter backward."""
+
+    @staticmethod
+    def forward(ctx, table, gid_sorted, sorted_start, tile_nchunks,
+                cnt_allowed, cfg, depth_grad):
+        inst = table.t()[gid_sorted.long()].contiguous()
+        tiles, ckpt = composite_tiles(inst, sorted_start, tile_nchunks,
+                                      cnt_allowed, cfg, save_ckpt=True)
+        ctx.save_for_backward(inst, sorted_start, cnt_allowed, tiles, ckpt)
+        ctx.cfg, ctx.depth_grad, ctx.n = cfg, depth_grad, table.shape[1]
+        return tiles
+
+    @staticmethod
+    def backward(ctx, g_tiles):
+        inst, sorted_start, cnt_allowed, tiles, ckpt = ctx.saved_tensors
+        rows = composite_tiles_bwd(inst, sorted_start, cnt_allowed,
+                                   g_tiles.contiguous(), tiles, ckpt, ctx.cfg,
+                                   ctx.depth_grad)
+        d_table = scatter_instance_grads(rows, ctx.n, ctx.depth_grad)
+        return d_table, None, None, None, None, None, None
+
+
+def render_from_table(table, binned: BinnedInstances, cfg: TileConfig,
+                      depth_grad: bool = True):
+    """[T, 8, npix] tiles of the rank table: differentiable in the table when
+    a gradient is asked (K1 with checkpoints, then K2), else K1 alone."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _RenderFromTable.apply(table, binned.gid_sorted,
+                                      binned.sorted_start, binned.tile_nchunks,
+                                      binned.cnt_allowed, cfg, depth_grad)
+    inst = table.t()[binned.gid_sorted.long()].contiguous()
+    return composite_tiles(inst, binned.sorted_start, binned.tile_nchunks,
+                           binned.cnt_allowed, cfg)
+
+
+def bin_tiles(
     pre: PreprocessedGaussians,
     width: int,
     height: int,
@@ -255,8 +506,8 @@ def prepare_tiles(
     block_y: int = 1,
     contrib_stats: bool = True,
 ) -> tuple[torch.Tensor, BinnedInstances, TileConfig]:
-    """Bin a preprocessed gaussian set and gather its sorted instance table:
-    returns (inst [max_instances, FEAT], binned, cfg), the inputs of K1."""
+    """Bin a preprocessed gaussian set: returns (the [FEAT, P] rank table,
+    binned, cfg)."""
     # the JAX package rounds the per-tile chunk cap up to a multiple of 8
     # (a TPU tiling rule for its checkpoint array); binning reads the cap,
     # so the port rounds alike to keep its integer outputs equal
@@ -268,12 +519,21 @@ def prepare_tiles(
     cfg = TileConfig(
         grid_x=-(-grid_x // block_x), grid_y=-(-grid_y // block_y),
         pw=TILE * block_x, ph=TILE * block_y,
-        rect_test=block_x != 1 or block_y != 1, contrib_stats=contrib_stats)
+        rect_test=block_x != 1 or block_y != 1, contrib_stats=contrib_stats,
+        max_chunks=max_chunks_per_tile)
     binned = bin_instances(
         pre, width, height, max_instances, max_chunks_per_tile,
         tile_cull=tile_cull, capacity_slack=capacity_slack,
         block_x=block_x, block_y=block_y)
     table = _build_rank_table(pre, binned.dorder, rect_rows=cfg.rect_test)
+    return table, binned, cfg
+
+
+def prepare_tiles(pre: PreprocessedGaussians, width: int, height: int, **kw):
+    """Bin a preprocessed gaussian set and gather its sorted instance table:
+    returns (inst [max_instances, FEAT], binned, cfg), the inputs of K1.
+    Keywords as in `bin_tiles`."""
+    table, binned, cfg = bin_tiles(pre, width, height, **kw)
     inst = table.t()[binned.gid_sorted.long()].contiguous()
     return inst, binned, cfg
 
@@ -285,15 +545,17 @@ def tiles_to_image(tiles, cfg: TileConfig):
             .reshape(8, cfg.grid_y * cfg.ph, cfg.grid_x * cfg.pw))
 
 
-def render_tiles_raw(pre: PreprocessedGaussians, width: int, height: int, **kw):
+def render_tiles_raw(pre: PreprocessedGaussians, width: int, height: int,
+                     depth_grad: bool = True, **kw):
     """Bin + render a preprocessed gaussian set to raw tile images.
 
     Returns (img [8, grid_y*ph, grid_x*pw] with rows (C0, C1, C2, D, A, T,
-    n_contrib, neff), binned, cfg). Keywords as in `prepare_tiles`.
+    n_contrib, neff), binned, cfg). Rows 0-5 are differentiable; with
+    depth_grad=False the backward skips the depth term. Keywords as in
+    `bin_tiles`.
     """
-    inst, binned, cfg = prepare_tiles(pre, width, height, **kw)
-    tiles = composite_tiles(inst, binned.sorted_start, binned.tile_nchunks,
-                            binned.cnt_allowed, cfg)
+    table, binned, cfg = bin_tiles(pre, width, height, **kw)
+    tiles = render_from_table(table, binned, cfg, depth_grad)
     return tiles_to_image(tiles, cfg), binned, cfg
 
 
@@ -314,20 +576,18 @@ def rasterize_tiles(
     capacity_slack: float = 0.6,
     block_x: int = 1,
     block_y: int = 1,
+    depth_grad: bool = True,
     contrib_stats: bool = True,
 ) -> RenderOutput:
-    """Tile-binned rasterization (← rasterize_pallas), forward only;
-    API-compatible with rasterize_naive.
+    """Tile-binned rasterization (← rasterize_pallas), differentiable in all
+    five inputs; API-compatible with rasterize_naive.
 
     block_x/block_y set the SUPERTILE factor: each K1 block (and each
     binning cell) covers a (16*block_x) x (16*block_y) pixel block.
+    depth_grad=False lets the backward skip the depth term (the caller
+    drops the depth cotangent anyway). final_T, n_contrib and radii carry
+    no gradient.
     """
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (means, scales, quats, opacities, shs)):
-        raise NotImplementedError(
-            "the tiles rasterizer is forward-only until the training slice "
-            "ports the backward tile kernel (K2); render under "
-            "torch.no_grad(), or use backend='naive' for gradients")
     H, W = camera.height, camera.width
     if bg_color is None:
         bg_color = torch.ones(3, dtype=means.dtype, device=means.device)
@@ -338,19 +598,19 @@ def rasterize_tiles(
         active_mask=active_mask,
     )
     img, binned, cfg = render_tiles_raw(
-        pre, W, H, max_instances=max_instances,
+        pre, W, H, depth_grad=depth_grad, max_instances=max_instances,
         max_chunks_per_tile=max_chunks_per_tile, tile_cull=tile_cull,
         capacity_slack=capacity_slack, block_x=block_x, block_y=block_y,
         contrib_stats=contrib_stats)
     # per-tile walked chunks (the early-stop vote), summed
-    walked = img[7, ::cfg.ph, ::cfg.pw].sum().to(torch.int32)
+    walked = img[7, ::cfg.ph, ::cfg.pw].detach().sum().to(torch.int32)
     img = img[:, :H, :W]
     return RenderOutput(
         color=img[0:3] + img[5][None] * bg_color[:, None, None],
         depth=img[3],
         acc=img[4],
-        final_T=img[5],
-        n_contrib=img[6].to(torch.int32),
+        final_T=img[5].detach(),
+        n_contrib=img[6].detach().to(torch.int32),
         radii=pre.radius.detach(),
         overflow=binned.overflow,
         num_instances=binned.num_instances,

@@ -1,5 +1,6 @@
-"""K1 and K3 on the card against their plain PyTorch versions, at small
-shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
+"""K1 (with its checkpoints), K2 and K3 on the card against their plain
+PyTorch versions, the tiles backend's gradients against the naive
+backend's, and a few train steps, at small shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
 card with nvcc and skips elsewhere. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -9,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from gslivm_tpu_torch import convert
+from gslivm_tpu_torch.models import training
 from gslivm_tpu_torch.models.cameras import make_camera
 from gslivm_tpu_torch.ops import blur, losses, rasterize, rasterize_reference, rasterize_tiles
 
@@ -18,7 +21,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1/K3 kernels have no CPU mode")
+        pytest.skip("needs a CUDA card: the K1/K2/K3 kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -95,7 +98,7 @@ def test_k3_matches_plain_version_and_vjp(cuda):
     assert float((dx.cpu() - dxc).abs().max()) <= 1e-5
 
 
-def test_tiles_on_card_matches_naive_and_refuses_grads(cuda):
+def test_tiles_on_card_matches_naive_with_grads(cuda):
     rng = np.random.default_rng(2)
     cam = make_camera(np.eye(3), np.zeros(3), 64, 48, fovx=1.0, fovy=0.8, device=cuda)
     scene = _scene(rng, 150, cuda)
@@ -106,9 +109,132 @@ def test_tiles_on_card_matches_naive_and_refuses_grads(cuda):
     for f in ("color", "depth", "acc"):
         a, b = getattr(naive, f), getattr(tiles, f)
         assert float((a - b).abs().max()) / max(float(a.abs().max()), 1.0) <= 1e-3, f
-    scene[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        rasterize.rasterize(*scene, cam)
+    _grads_match_naive(cam, [x.requires_grad_(True) for x in scene], (2, 2))
+
+
+def _grads_match_naive(cam, scene, block):
+    """All five parameter gradients of the tiles backend (K1 + K2 on the
+    card) against the naive backend's, scale-normalised <= 1e-3."""
+    rng = np.random.default_rng(3)
+    gt = torch.as_tensor(rng.uniform(size=(3, cam.height, cam.width)),
+                         dtype=torch.float32, device=cam.device)
+    grads = {}
+    for backend in ("tiles", "naive"):
+        before = rasterize_tiles.composite_tiles_bwd.launches
+        out = rasterize.rasterize(*scene, cam, settings=rasterize.RasterizeSettings(
+            backend=backend, block_x=block[0], block_y=block[1], max_instances=1 << 16))
+        loss = ((out.color - gt) ** 2).sum() + 0.1 * out.acc.sum()
+        grads[backend] = torch.autograd.grad(loss, scene)
+        assert rasterize_tiles.composite_tiles_bwd.launches == before + (backend == "tiles")
+    for name, a, b in zip(("means", "scales", "quats", "opac", "shs"),
+                          grads["naive"], grads["tiles"]):
+        scale = float(a.abs().max())
+        assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale, name
+
+
+@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+def test_k1_checkpoints_and_k2_match_plain_versions(cuda, block):
+    rng = np.random.default_rng(4)
+    w, h = 160, 120  # the last supertile row overhangs the image
+    cam = make_camera(np.eye(3), np.zeros(3), w, h, fovx=1.0, fovy=0.8, device=cuda)
+    pre = rasterize_reference.preprocess(*_scene(rng, 3000, cuda), cam)
+    inst, binned, cfg = rasterize_tiles.prepare_tiles(
+        pre, w, h, max_instances=1 << 16, block_x=block[0], block_y=block[1],
+        contrib_stats=False)
+    args = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+    k, ck = rasterize_tiles.composite_tiles(*args, save_ckpt=True)
+    p, cp = rasterize_tiles.composite_tiles_plain(*args, save_ckpt=True)
+    neff = k[:, 7, 0].long()
+    assert int(neff.max()) > 1
+    walked = torch.arange(cfg.max_chunks, device=cuda)[None, :] < neff[:, None]
+    # chunk-start T below neff: f32 rounding of a sequential product vs a
+    # prefix product; the done flag (the sign) flips on at most 0.1%
+    assert float((ck.abs() - cp.abs())[walked].abs().max()) <= 1e-3
+    assert int(((ck < 0) != (cp < 0))[walked].sum()) <= 1e-3 * int(walked.sum()) * cfg.npix
+    _k2_matches_plain(inst, binned.sorted_start, binned.cnt_allowed, k, ck, cfg, rng)
+    scene = [x.requires_grad_(True) for x in _scene(rng, 400, cuda)]
+    _grads_match_naive(make_camera(np.eye(3), np.zeros(3), 64, 48, fovx=1.0, fovy=0.8,
+                                   device=cuda), scene, block)
+
+
+def _k2_matches_plain(inst, start, cnt, tiles, ckpt, cfg, rng):
+    """K2 against its plain version on identical inputs: per gradient row,
+    max abs difference over max(|plain row|, 1e-12) <= 1e-3 (f32 sums over
+    the block's pixels in another order, and the replay's sequential T
+    against the prefix product)."""
+    g = torch.as_tensor(rng.normal(size=tuple(tiles.shape)), dtype=torch.float32,
+                        device=inst.device)
+    g[:, 6:] = 0.0
+    for depth_grad in (True, False):
+        before = rasterize_tiles.composite_tiles_bwd.launches
+        k = rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, tiles, ckpt, cfg,
+                                                depth_grad)
+        torch.cuda.synchronize()
+        assert rasterize_tiles.composite_tiles_bwd.launches == before + 1
+        p = rasterize_tiles.composite_tiles_bwd_plain(inst, start, cnt, g, tiles, ckpt,
+                                                      cfg, depth_grad)
+        assert torch.equal(k[:, rasterize_tiles._FID], p[:, rasterize_tiles._FID])
+        for c in range(10):
+            scale = max(float(p[:, c].abs().max()), 1e-12)
+            assert float((k[:, c] - p[:, c]).abs().max()) <= 1e-3 * scale, (depth_grad, c)
+        assert depth_grad or not bool(k[:, 9].any())
+
+
+def test_k2_on_crafted_runs(cuda):
+    """Tile 0 saturates inside its first chunk (neff 1 of 3): K2 walks only
+    chunk 0 and leaves the rows of chunks 1-2 zero; tile 1's run starts off
+    a 128 boundary."""
+    rng = np.random.default_rng(7)
+    cnt = torch.tensor([300, 200], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
+    nch = (cnt + 127) // 128
+    inst = torch.zeros((500, rasterize_tiles.FEAT), device=cuda)
+    inst[:, 0] = torch.as_tensor(rng.uniform(0, 32, 500), device=cuda)
+    inst[:, 1] = torch.as_tensor(rng.uniform(0, 16, 500), device=cuda)
+    inst[:, 2] = inst[:, 4] = 0.01
+    inst[:300, 5] = 0.95
+    inst[300:, 5] = 0.2
+    inst[:, 6:10] = torch.as_tensor(rng.uniform(0, 2, (500, 4)), device=cuda)
+    inst[:, rasterize_tiles._FID] = torch.arange(500, device=cuda, dtype=torch.float32)
+    cfg = rasterize_tiles.TileConfig(grid_x=2, grid_y=1, max_chunks=8)
+    k, ck = rasterize_tiles.composite_tiles(inst, start, nch, cnt, cfg, save_ckpt=True)
+    assert k[:, 7, 0].tolist() == [1.0, 2.0]
+    _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng)
+    g = torch.ones_like(k)
+    rows = rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, k, ck, cfg)
+    assert bool(rows[:128, 6].abs().gt(0).any()) and not bool(rows[128:300].any())
+
+
+def test_train_step_on_card_lowers_the_loss(cuda):
+    rng = np.random.default_rng(5)
+    n = 2000
+    q = rng.normal(size=(n, 4))
+    opac = rng.uniform(0.3, 0.9, n)
+    d = {"xyz": rng.normal(0, 1.0, (n, 3)) + [0, 0, 4.0],
+         "features_dc": rng.uniform(-0.3, 0.8, (n, 1, 3)),
+         "features_rest": np.zeros((n, 0, 3)),
+         "scaling": np.log(rng.uniform(0.02, 0.08, (n, 3))),
+         "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+         "opacity": np.log(opac / (1 - opac))[:, None], "n_active": n}
+    cams = [make_camera(np.eye(3), np.asarray(c), 160, 120, fovx=1.0, fovy=0.8, device=cuda)
+            for c in ([0, 0, 0], [0.05, 0, 0], [0, 0.05, 0])]
+    settings = rasterize.RasterizeSettings(max_instances=1 << 17)
+    bg = torch.ones(3, device=cuda)
+    params = convert.params_from_numpy(d, device=cuda)
+    with torch.no_grad():
+        gt = torch.stack([training.render_params(params, c, bg, settings).color
+                          for c in cams])
+        params.features_dc += torch.as_tensor(
+            0.2 * rng.normal(size=(n, 1, 3)), dtype=torch.float32, device=cuda)
+    opt = training.make_optimizer(params)
+    simi = training.empty_simi(device=cuda)
+    before = rasterize_tiles.composite_tiles_bwd.launches
+    losses_ = [training.train_step(params, opt, cams, gt, simi, settings=settings,
+                                   n_history_pairs=1) for _ in range(5)]
+    assert rasterize_tiles.composite_tiles_bwd.launches == before + 15
+    vals = [float(m.loss) for m in losses_]
+    assert all(np.isfinite(vals)) and vals[-1] < vals[0], vals
+    assert all(int(m.overflow) == 0 for m in losses_)
 
 
 def test_wrappers_reject_bad_inputs(cuda):

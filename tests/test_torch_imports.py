@@ -60,7 +60,7 @@ def test_importing_every_module_loads_no_jax():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from gslivm_tpu_torch import convert
-    from gslivm_tpu_torch.models import cameras, gaussian_model
+    from gslivm_tpu_torch.models import cameras, gaussian_model, training
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu = gaussian_model.create_empty(3, device="cpu")
@@ -71,6 +71,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: gaussian_model.create_empty(3),
         lambda: gaussian_model.load_ply(str(tmp_path / "m.ply")),
         lambda: convert.params_from_numpy(fields),
+        lambda: convert.simi_from_numpy({"points": np.zeros((2, 3)), "point_mask": np.ones(2),
+                                         "gauss_idx": np.zeros(2), "gauss_mask": np.ones(2)}),
+        lambda: training.empty_simi(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -97,3 +100,23 @@ def test_library_name_follows_the_nvcc_flags(monkeypatch):
     for name in kernels.SOURCES:
         assert kernels.library_path(name) != before[name]
         assert kernels.library_path(name).parent == before[name].parent
+
+
+def test_library_name_follows_the_included_headers(monkeypatch, tmp_path):
+    """An edited header must rebuild every kernel that includes it, and
+    only those."""
+    import shutil
+
+    from gslivm_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {n: kernels.library_path(n) for n in kernels.SOURCES}
+    users = {n for n in kernels.SOURCES
+             if "tile_common.cuh" in kernels._local_headers((csrc / f"{n}.cu").read_bytes())}
+    assert users == {"tile_forward", "tile_backward"}
+    with open(csrc / "tile_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name in kernels.SOURCES:
+        assert (kernels.library_path(name) != before[name]) == (name in users), name
