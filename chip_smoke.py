@@ -33,10 +33,29 @@ just before its first step and read just after), train_profile,
 k2_parity (K1's checkpoints and K2 against their plain versions at full
 size, with the cotangents of view 0's real loss), grad_parity (the tiles
 backend's parameter gradients against the naive backend's on a small
-scene). Then the card's name and power limit as nvidia-smi prints them,
-the kernels table as one JSON line, and last {"ok": true, "device": {...}}.
-Any failure raises and exits non-zero; without CUDA the script exits 1 and
-prints no result.
+scene).
+
+The measurement-tools path (`gslivm_tpu_torch/tools/`), each phase through
+the tool's own `run`/`sweep` entry point: t1_fetch (T1,
+`csrc/microbench_fetch.cu`: per-tile sums of 2,040 runs of 4 chunks read
+four ways; its launch counter set to 0 just before the tool's run and read
+just after; then each variant against its plain version, and the library
+yardstick for the aligned case), t2_ablate (T2,
+`csrc/microbench_fwdablate.cu`: K1's chunk walk at 2,040 tiles x 4 chunks
+with one piece removed at a time, its counter around the tool's run, each
+variant against its plain version at full size, and the SASS instruction
+counts of each variant where the toolkit has cuobjdump), kernelcost (K1,
+K2 and the differentiable render on fabricated runs of 1, 2, 4 and 8
+chunks per tile: the per-chunk slope and per-tile intercept, with neff ==
+nch asserted in every tile) and step_profile (the overdraw statistics and
+the stage times of the three-camera train step at the JAX tool's budgets).
+
+Then the card's name and power limit as nvidia-smi prints them, the
+kernels table as one JSON line (T1's and T2's `launches` count their tool
+runs, the path they belong to; K1-K3 also give `launches_tools`, their
+launches in kernelcost and step_profile), and last {"ok": true, "device":
+{...}}. Any failure raises and exits non-zero; without CUDA the script
+exits 1 and prints no result.
 
 Tolerances: K1 against its plain version, rows C, D, A, T: max abs
 deviation over max(|plain|, 1) per row <= 1e-3 (sequential compositing vs a
@@ -49,13 +68,18 @@ version's max abs <= 1e-3 (pixel sums in another order, sequential T
 against a prefix product); the same gate holds the tiles backend's
 gradients against the naive backend's (the JAX bench's on-chip oracle
 gate, bench.py:220-228). K3 against the plain shift-add: max abs <= 1e-5
-(f32 sums of 121 taps, FMA allowed).
+(f32 sums of 121 taps, FMA allowed). T1 against its plain version, every
+variant: relative error <= 1e-5 per tile (f32 sums of 8,192 squares in
+another order). T2 against its plain version, every variant, rows C0-T:
+max abs deviation over max(|plain|, 1) per row <= 1e-3 (K1's gate:
+sequential compositing against the prefix product).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,6 +127,36 @@ def scaled_err(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
 
 
+def sass_counts(lib_path) -> dict | None:
+    """Instruction counts by opcode of each kernel in a built library, from
+    `cuobjdump -sass`; None where the toolkit has no cuobjdump."""
+    from collections import Counter
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    exe = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), Counter())
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)",
+                      line)
+        if m and cur is not None:
+            cur["total"] += 1
+            op = m.group(1)
+            for key in ("MUFU.EX2", "BAR.SYNC", "LDS", "LDG", "FFMA", "FMUL", "FADD",
+                        "FSETP", "FMNMX"):
+                if op == key or op.startswith(key + "."):
+                    cur[key] += 1
+    return {name: dict(c) for name, c in counts.items()}
+
+
 def make_simi(rng):
     """500 anchor points around the scene and 2048 gaussian indices, about
     half of each masked in, as numpy arrays (SimiInputs fields)."""
@@ -147,6 +201,10 @@ def main() -> int:
     from gslivm_tpu_torch.ops import blur, losses, rasterize_reference, rasterize_tiles
     from gslivm_tpu_torch.ops.binning import CHUNK
     from gslivm_tpu_torch.ops.rasterize import RasterizeSettings, rasterize
+    from gslivm_tpu_torch.tools import microbench_fwdablate as ablate
+    from gslivm_tpu_torch.tools import microbench_kernelcost as kernelcost
+    from gslivm_tpu_torch.tools import microbench_roll as roll
+    from gslivm_tpu_torch.tools import profile_step3
     from gslivm_tpu_torch.utils import metrics
 
     # ---- env ---------------------------------------------------------------
@@ -491,6 +549,82 @@ def main() -> int:
     emit("grad_parity", scene="160x120, 3000 gaussians", tol=1e-3, scaled_err=grad_err)
     assert max(e for blk in grad_err.values() for e in blk.values()) <= 1e-3, grad_err
 
+    # ---- t1_fetch: the chunk-fetch tool (T1), counters around its run -----
+    roll.fetch_sum.launches = 0
+    t1_runs = {v: roll.run(v, device=dev, reps=100) for v in roll.VARIANTS}
+    torch.cuda.synchronize()
+    t1_launches = roll.fetch_sum.launches
+    assert t1_launches > 0, t1_launches
+    t1, sums = {}, {}
+    with torch.no_grad():
+        for v in roll.VARIANTS:
+            inst_np, off_np, nch_np = roll.make_inputs(v)
+            inst = convert.inst_from_numpy(inst_np, device=dev)
+            off, nch = torch.from_numpy(off_np).to(dev), torch.from_numpy(nch_np).to(dev)
+            sums[v] = roll.fetch_sum(inst, off, nch, v)
+            plain = roll.fetch_sum_plain(inst, off, nch)
+            t1[v] = {**t1_runs[v],
+                     "max_rel_err": float(((sums[v] - plain).abs() / plain.abs()).max()),
+                     "max_abs_err": float((sums[v] - plain).abs().max()),
+                     "plain_ms": cuda_ms(lambda: roll.fetch_sum_plain(inst, off, nch), 10)}
+            if v == "A":
+                # library yardstick (never on a path): one norm per tile over
+                # the same bytes, the aligned runs being contiguous rows
+                rows = inst[:roll.T * roll.NCH * CHUNK].view(roll.T, -1)
+                norm = torch.linalg.vector_norm(rows, dim=1)
+                t1[v]["library_ms"] = cuda_ms(lambda: torch.linalg.vector_norm(rows, dim=1), 100)
+                t1[v]["library_rel_err"] = float(((norm * norm - plain).abs() / plain).max())
+            del inst, off, nch, plain
+    same_sums = max(float(((sums[v] - sums["B"]).abs() / sums["B"].abs()).max()) for v in "CD")
+    emit("t1_fetch", tiles=roll.T, chunks_per_tile=roll.NCH, launches=t1_launches,
+         tol_rel=1e-5, variants=t1, b_c_d_max_rel_diff=same_sums,
+         unaligned_cost_ms={v: t1[v]["ms"] - t1["A"]["ms"] for v in "BCD"})
+    assert max(r["max_rel_err"] for r in t1.values()) <= 1e-5, t1
+    assert same_sums <= 1e-5, same_sums
+
+    # ---- t2_ablate: the K1 ablation tool (T2), counters around its run ----
+    inputs = ablate.device_inputs(dev)
+    ablate.chunk_walk.launches = 0
+    t2_runs = {v: ablate.run(v, device=dev, reps=20, inputs=inputs) for v in ablate.VARIANTS}
+    torch.cuda.synchronize()
+    t2_launches = ablate.chunk_walk.launches
+    assert t2_launches > 0, t2_launches
+    t2_work = ablate.work(inputs[2], inputs[3])
+    t2 = {}
+    with torch.no_grad():
+        for v in ablate.VARIANTS:
+            k = ablate.chunk_walk(*inputs, ablate.GX, v)
+            p = ablate.chunk_walk_plain(*inputs, ablate.GX, v)
+            err = max(float((k[:, r] - p[:, r]).abs().max())
+                      / max(float(p[:, r].abs().max()), 1.0) for r in range(6))
+            t2[v] = {**t2_runs[v], "max_scaled_err": err,
+                     "max_abs_err": float((k[:, :6] - p[:, :6]).abs().max()),
+                     "saves_us_per_chunk": t2_runs["full"]["us_per_chunk"]
+                     - t2_runs[v]["us_per_chunk"]}
+            del k, p
+        t2_plain_ms = cuda_ms(lambda: ablate.chunk_walk_plain(*inputs, ablate.GX, "full"), 2)
+    del inputs
+    # static instruction counts of each variant's kernel (template <V>)
+    sass = sass_counts(kernels.library_path("microbench_fwdablate"))
+    if sass is not None:
+        sass = {ablate.VARIANTS[int(re.search(r"ILi(\d+)E", name).group(1))]: c
+                for name, c in sass.items() if "ablate_kernel" in name}
+    emit("t2_ablate", tiles=ablate.GX * ablate.GY, chunks_per_tile=ablate.NCH,
+         launches=t2_launches, tol=1e-3, variants=t2, full_plain_ms=t2_plain_ms,
+         sass=sass, **t2_work)
+    assert max(r["max_scaled_err"] for r in t2.values()) <= 1e-3, t2
+
+    # ---- kernelcost and step_profile: K1/K2 cost split, step stages -------
+    rasterize_tiles.composite_tiles.launches = 0
+    rasterize_tiles.composite_tiles_bwd.launches = 0
+    blur.blur_cuda.launches = 0
+    emit("kernelcost", **kernelcost.sweep(device=dev, reps=10))
+    emit("step_profile", **profile_step3.run(device=dev, reps=10))
+    torch.cuda.synchronize()
+    tool_launches = {"K1": rasterize_tiles.composite_tiles.launches,
+                     "K2": rasterize_tiles.composite_tiles_bwd.launches,
+                     "K3": blur.blur_cuda.launches}
+
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
     k3_bound_by = "bytes" if k3_bytes / PEAK_BYTES >= k3_flops / PEAK_F32 else "operations"
@@ -517,7 +651,29 @@ def main() -> int:
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_bound_by, "library_ms": lib_ms},
+        {"name": "T1 microbench_fetch", "route": "cuda",
+         "source": "gslivm_tpu_torch/csrc/microbench_fetch.cu",
+         "replaces": "tools/microbench_roll.py:42",
+         "launches": t1_launches, "launches_tools": t1_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in t1.values()),
+         "max_rel_err": max(r["max_rel_err"] for r in t1.values()),
+         "ms": t1["A"]["ms"], "plain_ms": t1["A"]["plain_ms"],
+         "bound_ms": t1["A"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": t1["A"]["library_ms"],
+         "variants_ms": {v: r["ms"] for v, r in t1.items()}},
+        {"name": "T2 microbench_fwdablate", "route": "cuda",
+         "source": "gslivm_tpu_torch/csrc/microbench_fwdablate.cu",
+         "replaces": "tools/microbench_fwdablate.py:51",
+         "launches": t2_launches, "launches_tools": t2_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in t2.values()),
+         "max_scaled_err": max(r["max_scaled_err"] for r in t2.values()),
+         "ms": t2["full"]["ms"], "plain_ms": t2_plain_ms,
+         "bound_ms": t2_work["bound_ms"], "bound_by": t2_work["bound_by"],
+         "library_ms": None,
+         "variants_ms": {v: r["ms"] for v, r in t2.items()}},
     ]
+    for row, key in zip(table, ("K1", "K2", "K3")):
+        row["launches_tools"] = tool_launches[key]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

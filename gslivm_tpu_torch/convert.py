@@ -42,6 +42,14 @@ def camera_from_numpy(d, device="cuda") -> Camera:
                   width=int(d["width"]), height=int(d["height"]))
 
 
+def inst_from_numpy(feature_major, device="cuda") -> torch.Tensor:
+    """A feature-major [16, L] instance table (the JAX kernels' layout) ->
+    the port's row-major [L, 16] float32 table, contiguous on `device`."""
+    dev = resolve_device(device)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(feature_major, dtype=np.float32).T)).to(dev)
+
+
 def simi_from_numpy(d, device="cuda") -> SimiInputs:
     """A mapping of the SimiInputs fields -> numpy arrays (anchor points,
     their mask, gaussian indices, their mask) -> the port's SimiInputs."""

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-SOURCES = ("tile_forward", "tile_backward", "blur")
+SOURCES = ("tile_forward", "tile_backward", "blur", "microbench_fetch",
+           "microbench_fwdablate")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -43,6 +44,12 @@ _SIGNATURES = {
     "tile_backward": ("tile_backward", [_P] * 7 + [_I] * 7 + [_P]),
     # x, y, n, h, w, taps (host float*), k, stream
     "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _P]),
+    # inst, off, nch, out, num_tiles, rows, variant, stream
+    "microbench_fetch": ("microbench_fetch", [_P] * 4 + [_I] * 3 + [_P]),
+    # inst, start, nchunks, count, out, num_tiles, grid_x, variant,
+    # accept_thr, stream
+    "microbench_fwdablate": ("microbench_fwdablate",
+                             [_P] * 5 + [_I] * 3 + [ctypes.c_float, _P]),
 }
 
 _FNS: dict = {}  # kernel name -> its loaded C entry point

@@ -279,12 +279,16 @@ def _check_int_rows(nt: int, device, **rows):
                              f"on {device}")
 
 
-def _check_inst_and_block(inst, cfg: TileConfig):
+def _check_inst(inst):
     if inst.dtype != torch.float32 or inst.dim() != 2 or inst.shape[1] != FEAT:
         raise ValueError(f"inst must be float32 [L, {FEAT}], got "
                          f"{inst.dtype} {tuple(inst.shape)}")
     if not inst.is_contiguous() or inst.data_ptr() % 16:
         raise ValueError("inst must be contiguous and 16-byte aligned")
+
+
+def _check_inst_and_block(inst, cfg: TileConfig):
+    _check_inst(inst)
     if cfg.npix % 256 or not 1 <= cfg.npix // 256 <= 8:
         raise ValueError(f"pixel block {cfg.pw}x{cfg.ph} is not 256..2048 "
                          "pixels in multiples of 256")

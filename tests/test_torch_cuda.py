@@ -1,6 +1,7 @@
-"""K1 (with its checkpoints), K2 and K3 on the card against their plain
-PyTorch versions, the tiles backend's gradients against the naive
-backend's, and a few train steps, at small shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
+"""K1 (with its checkpoints), K2, K3 and the tools' kernels T1 and T2 on
+the card against their plain PyTorch versions, the tiles backend's
+gradients against the naive backend's, and a few train steps, at small
+shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
 card with nvcc and skips elsewhere. Run on the card with:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -14,6 +15,7 @@ from gslivm_tpu_torch import convert
 from gslivm_tpu_torch.models import training
 from gslivm_tpu_torch.models.cameras import make_camera
 from gslivm_tpu_torch.ops import blur, losses, rasterize, rasterize_reference, rasterize_tiles
+from gslivm_tpu_torch.tools import microbench_fwdablate, microbench_roll
 
 pytestmark = pytest.mark.cuda
 
@@ -21,7 +23,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the K1/K2/K3 kernels have no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -235,6 +237,44 @@ def test_train_step_on_card_lowers_the_loss(cuda):
     vals = [float(m.loss) for m in losses_]
     assert all(np.isfinite(vals)) and vals[-1] < vals[0], vals
     assert all(int(m.overflow) == 0 for m in losses_)
+
+
+@pytest.mark.parametrize("variant", microbench_roll.VARIANTS)
+def test_t1_fetch_matches_plain_version(cuda, variant):
+    """T1 on 64 tiles with ragged chunk counts, a first run that starts
+    before the table and a last one that ends past it: f32 sums in another
+    order, 1e-5 relative."""
+    inst, off, nch = microbench_roll.make_inputs(variant, tiles=64, nch=3)
+    nch[::5] = 1
+    off[0] = -70
+    off[-1] = inst.shape[1] - 200
+    inst_t = convert.inst_from_numpy(inst, device=cuda)
+    off_t, nch_t = torch.from_numpy(off).to(cuda), torch.from_numpy(nch).to(cuda)
+    before = microbench_roll.fetch_sum.launches
+    k = microbench_roll.fetch_sum(inst_t, off_t, nch_t, variant)
+    torch.cuda.synchronize()
+    assert microbench_roll.fetch_sum.launches == before + 1
+    p = microbench_roll.fetch_sum_plain(inst_t, off_t, nch_t)
+    assert float(((k - p).abs() / p.abs()).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", microbench_fwdablate.VARIANTS)
+def test_t2_chunk_walk_matches_plain_version(cuda, variant):
+    """T2 on 4x2 tiles of 2 chunks, every third run cut to 200 instances
+    (a partial chunk): sequential compositing against the plain version's
+    prefix product, 1e-3 of each row's scale (K1's gate)."""
+    inst, start, nch, cnt = microbench_fwdablate.build_inputs(4, 2, 2)
+    cnt[::3] = 200
+    args = (convert.inst_from_numpy(inst, device=cuda),
+            *(torch.from_numpy(a).to(cuda) for a in (start, nch, cnt)))
+    before = microbench_fwdablate.chunk_walk.launches
+    k = microbench_fwdablate.chunk_walk(*args, 4, variant)
+    torch.cuda.synchronize()
+    assert microbench_fwdablate.chunk_walk.launches == before + 1
+    p = microbench_fwdablate.chunk_walk_plain(*args, 4, variant)
+    for row in range(8):
+        scale = max(float(p[:, row].abs().max()), 1.0)
+        assert float((k[:, row] - p[:, row]).abs().max()) <= 1e-3 * scale, row
 
 
 def test_wrappers_reject_bad_inputs(cuda):
