@@ -21,19 +21,25 @@ truth and their cached SSIM statistics, 500 anchor points for simi_loss,
 default GsOptimParams and RasterizeSettings. One step renders each view
 through K1 with checkpoints, scores it with L1 + SSIM (K3 forward and
 backward), backpropagates through the backward tile kernel K2
-(`csrc/tile_backward.cu`) and preprocess, and takes a six-group Adam step.
+(`csrc/tile_backward.cu`, which returns the gradient summed per gaussian)
+and preprocess, and takes a six-group Adam step.
 
 Phases print one JSON line each: env, build, reference (K1's plain version
 renders each view: the ground truth the views are scored against), serve
 (the serving path, with every kernel launch counter set to 0 just before
 it and read just after), profile (torch.profiler over one served view:
-device busy time, idle share, kernels by device time), k1_parity,
+device busy time, idle share, kernels by device time), k1_parity (with
+the pairs inside each instance's tile-rect, the work of K1's bound),
 k3_parity, train (10 steps of the training path; the counters are set to 0
-just before its first step and read just after), train_profile,
-k2_parity (K1's checkpoints and K2 against their plain versions at full
-size, with the cotangents of view 0's real loss), grad_parity (the tiles
-backend's parameter gradients against the naive backend's on a small
-scene).
+just before its first step and read just after), train_profile (with the
+index_add_ kernels left on the step), k2_parity (K1's checkpoints and K2
+against their plain versions at full size, with the cotangents of view 0's
+real loss; K2's spread over 5 launches), tile_usage (registers, local
+bytes, shared memory and resident blocks per SM of K1 and K2 as the CUDA
+runtime reports them for the main path's launches, and the waves of
+their blocks), tile_sass (instruction counts of the same two kernels),
+grad_parity (the tiles backend's parameter gradients against the naive
+backend's on a small scene).
 
 The measurement-tools path (`gslivm_tpu_torch/tools/`), each phase through
 the tool's own `run`/`sweep` entry point: t1_fetch (T1,
@@ -53,19 +59,25 @@ the stage times of the three-camera train step at the JAX tool's budgets).
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
-launches in kernelcost and step_profile), and last {"ok": true, "device":
+launches in kernelcost and step_profile; K1 and K2 carry their tile_usage
+and say where their times before the redesign stand, which this script
+does not measure), and last {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero; without CUDA the script
 exits 1 and prints no result.
 
 Tolerances: K1 against its plain version, rows C, D, A, T: max abs
 deviation over max(|plain|, 1) per row <= 1e-3 (sequential compositing vs a
-prefix product in f32); at most 0.1% of pixels may differ in n_contrib and
-of tiles in neff (a rounding at the 1e-4 stop can move them); checkpoints
-below neff: max abs <= 1e-3 with at most 0.1% of done flags flipped. K2
-against its plain version, per gradient row and per parameter gradient
-after the scatter and preprocess: max abs deviation over the plain
-version's max abs <= 1e-3 (pixel sums in another order, sequential T
-against a prefix product); the same gate holds the tiles backend's
+prefix product in f32, the hardware exp against torch.exp); at most 0.1% of
+pixels may differ in n_contrib and of tiles in neff (a rounding at the 1e-4
+stop or the 1/255 alpha test can move them); checkpoints below neff: max
+abs <= 1e-3 with at most 0.1% of done flags flipped. K2 against its plain
+version (the per-instance rows summed per gaussian by
+scatter_instance_grads), per gradient row of the table and per parameter
+gradient after preprocess: max abs deviation over the plain version's max
+abs <= 1e-3 (pixel sums in another order, sequential T against a prefix
+product, the later contributors' sum as the pixel total minus a running
+prefix against a suffix scan, a gaussian's instances summed by atomics in
+run-to-run order); the same gate holds the tiles backend's
 gradients against the naive backend's (the JAX bench's on-chip oracle
 gate, bench.py:220-228). K3 against the plain shift-add: max abs <= 1e-5
 (f32 sums of 121 taps, FMA allowed). T1 against its plain version, every
@@ -94,15 +106,18 @@ VIEWS = ([0.0, 0.0, 0.0], [0.05, 0.0, 0.0], [0.0, 0.05, 0.0])  # bench.py:95, 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) flop/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# flops per (instance, pixel) pair that K1 walks: dx, dy (2), the conic
+# flops per (instance, pixel) pair that K1 evaluates: dx, dy (2), the conic
 # quadratic (9), exp (counted 2), alpha and its tests (2)
 K1_FLOPS_PER_PAIR = 15
-# K2 evaluates every walked pair once as K1 does (15), and for each
+# K2 evaluates every pair once as K1 does (15), and for each
 # contributing pair forms psi (7), dL/dalpha (6), d opacity and d power (3),
 # u and v (2) and adds 10 gradient terms (12 more products): 30
 K2_FLOPS_PER_CONTRIB = 30
 TRAIN_STEPS = 10
 SIMI_SEED = 1
+# where the times of K1 and K2 before their redesign stand; this script
+# measures only the kernels in the checkout
+EARLIER_TIMES = "PERF.md section 6"
 
 
 def emit(phase: str, **fields):
@@ -151,10 +166,41 @@ def sass_counts(lib_path) -> dict | None:
             cur["total"] += 1
             op = m.group(1)
             for key in ("MUFU.EX2", "BAR.SYNC", "LDS", "LDG", "FFMA", "FMUL", "FADD",
-                        "FSETP", "FMNMX"):
+                        "FSETP", "FMNMX", "SHFL", "VOTE", "RED"):
                 if op == key or op.startswith(key + "."):
                     cur[key] += 1
     return {name: dict(c) for name, c in counts.items()}
+
+
+def walked_slots(binned, neff):
+    """(tile, slot) of every instance a tile kernel walks: the first
+    min(cnt_allowed, 128 neff) instances of each tile's run."""
+    import torch
+
+    from gslivm_tpu_torch.ops.binning import CHUNK
+
+    n = torch.minimum(binned.cnt_allowed.long(), neff.long() * CHUNK)
+    tile = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n)
+    first = torch.cumsum(n, 0) - n
+    pos = torch.arange(int(n.sum()), device=n.device) - first[tile]
+    return tile, binned.sorted_start.long()[tile] + pos
+
+
+def rect_pairs(inst, binned, neff, cfg) -> int:
+    """The walked (instance, pixel) pairs whose pixel lies inside the
+    instance's 16x16 tile-rect (every walked pair without the rect test):
+    the pairs any design has to evaluate."""
+    from gslivm_tpu_torch.ops import rasterize_tiles as rt
+
+    tile, slot = walked_slots(binned, neff)
+    if not cfg.rect_test:
+        return int(slot.numel()) * cfg.npix
+    r = inst[slot]
+    x0 = (tile % cfg.grid_x * cfg.pw).float()
+    y0 = (tile // cfg.grid_x * cfg.ph).float()
+    ox = (r[:, rt._FX1].minimum(x0 + cfg.pw) - r[:, rt._FX0].maximum(x0)).clamp(min=0)
+    oy = (r[:, rt._FY1].minimum(y0 + cfg.ph) - r[:, rt._FY0].maximum(y0)).clamp(min=0)
+    return int((ox * oy).long().sum())
 
 
 def make_simi(rng):
@@ -222,8 +268,7 @@ def main() -> int:
     logs = kernels.build()
     usage = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
              for n, log in logs.items()}
-    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
-         ptxas=usage)
+    emit("build", seconds=time.perf_counter() - t0, built=sorted(logs), ptxas=usage)
 
     # ---- the map: JAX layout -> port -> PLY -> card ------------------------
     settings = RasterizeSettings()  # the mapper's defaults: auto -> tiles
@@ -309,9 +354,13 @@ def main() -> int:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)), reverse=True)
         busy_ms = sum(us for us, _, _ in kernels_us) / 1e3
+        # PyTorch's index_add_ (and index_copy_) kernels: indexFunc*Index
+        index_add = [(us, c) for us, k, c in kernels_us if "indexFunc" in k]
         return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                     idle_share=1.0 - busy_ms / wall_ms,
                     launches=sum(c for _, _, c in kernels_us),
+                    index_add={"calls": sum(c for _, c in index_add),
+                               "device_ms": sum(us for us, _ in index_add) / 1e3},
                     top=[{"kernel": k[:100], "device_ms": us / 1e3, "calls": c}
                          for us, k, c in kernels_us[:12]])
 
@@ -320,7 +369,7 @@ def main() -> int:
             training.render_params(params, cams[0], bg, settings).color, refs[0]["color"])))
 
     # ---- k1_parity: K1 vs its plain version, the same binned inputs --------
-    k1_err, ncontrib_diff, neff_diff, pairs, inst_bytes = 0.0, 0, 0, 0, 0
+    k1_err, ncontrib_diff, neff_diff, pairs, in_rect, inst_bytes = 0.0, 0, 0, 0, 0, 0
     k1_ms, plain_ms = [], []
     with torch.no_grad():
         for out, ref in zip(renders, refs):
@@ -340,20 +389,30 @@ def main() -> int:
             b = ref["binned"]
             walked = torch.minimum(b.cnt_allowed.long(), k[:, 7, 0].long() * CHUNK)
             pairs += int(walked.sum()) * cfg.npix
+            # of them, those inside the instance's tile-rect: the pairs any
+            # design has to evaluate, the work of the bound
+            in_rect += rect_pairs(args[0], b, k[:, 7, 0].long(), cfg)
             inst_bytes += int(walked.sum()) * 4 * rasterize_tiles.FEAT
             k1_ms.append(cuda_ms(lambda a=args: rasterize_tiles.composite_tiles(*a), 20))
             plain_ms.append(cuda_ms(lambda a=args: rasterize_tiles.composite_tiles_plain(*a), 3))
     n_views = len(renders)
     n_pix = n_views * cfg.num_tiles * cfg.npix
     n_tiles = n_views * cfg.num_tiles
-    k1_flops = pairs * K1_FLOPS_PER_PAIR / n_views
+    k1_flops = in_rect * K1_FLOPS_PER_PAIR / n_views
     k1_bytes = (inst_bytes / n_views + cfg.num_tiles * 3 * 4
                 + cfg.num_tiles * 8 * cfg.npix * 4)
     k1_bound = max(k1_flops / PEAK_F32, k1_bytes / PEAK_BYTES) * 1e3
+    # the bound as it was counted before the warp-uniform rect skip: every
+    # walked pair evaluated
+    k1_bound_walked = max(pairs * K1_FLOPS_PER_PAIR / n_views / PEAK_F32,
+                          k1_bytes / PEAK_BYTES) * 1e3
     emit("k1_parity", max_scaled_err=k1_err, tol=1e-3,
          ncontrib_mismatch_pixels=ncontrib_diff, pixels=n_pix,
          neff_mismatch_tiles=neff_diff, tiles=n_tiles,
-         kernel_ms=k1_ms, plain_ms=plain_ms, walked_pairs_per_view=pairs // n_views)
+         kernel_ms=k1_ms, plain_ms=plain_ms, walked_pairs_per_view=pairs // n_views,
+         rect_pairs_per_view=in_rect // n_views,
+         outside_rect_share=1.0 - in_rect / pairs, bound_ms=k1_bound,
+         bound_ms_walked=k1_bound_walked)
     assert k1_err <= 1e-3, k1_err
     assert ncontrib_diff <= 1e-3 * n_pix and neff_diff <= 1e-3 * n_tiles
 
@@ -478,49 +537,91 @@ def main() -> int:
     view_loss = ((1.0 - lam) * losses.l1_loss(color, gt[0]) + lam * (
         1.0 - losses.ssim(color, gt[0], ref_stats=(stats[0][0], stats[1][0]))))
     (g_tiles,) = torch.autograd.grad(view_loss, tiles_g)
+    n, dg = table.shape[1], settings.depth_grad
     bwd_args = (inst, binned.sorted_start, binned.cnt_allowed, g_tiles.contiguous(),
-                tiles, ckpt, cfg, settings.depth_grad)
+                tiles, ckpt, cfg)
     with torch.no_grad():
-        rows_k = rasterize_tiles.composite_tiles_bwd(*bwd_args)
-        rows_p = rasterize_tiles.composite_tiles_bwd_plain(*bwd_args)
+        d_k = rasterize_tiles.composite_tiles_bwd(*bwd_args, n, dg)
+        rows_p = rasterize_tiles.composite_tiles_bwd_plain(*bwd_args, dg)
+        d_p = rasterize_tiles.scatter_instance_grads(rows_p, n, dg)
         torch.cuda.synchronize()
-        assert torch.equal(rows_k[:, rasterize_tiles._FID], rows_p[:, rasterize_tiles._FID])
-        k2_err = max(scaled_err(rows_k[:, c], rows_p[:, c]) for c in range(10))
+        k2_err = max(scaled_err(d_k[c], d_p[c]) for c in range(10))
+        assert not bool(d_k[10:].any()) and (dg or not bool(d_k[9].any()))
+        # run to run: the atomics sum a gaussian's instances in varying order
+        runs = [rasterize_tiles.composite_tiles_bwd(*bwd_args, n, dg) for _ in range(5)]
+        k2_spread = max(float((r[c] - runs[0][c]).abs().max())
+                        / max(float(d_p[c].abs().max()), 1e-12)
+                        for r in runs[1:] for c in range(10))
+        del runs
     leaves = {"xyz": tparams.xyz, "scaling": tparams.scaling, "rotation": tparams.rotation,
               "opacity": tparams.opacity, "features_dc": tparams.features_dc}
-    n = table.shape[1]
-    gk = torch.autograd.grad(table, list(leaves.values()), rasterize_tiles.scatter_instance_grads(
-        rows_k, n, settings.depth_grad), retain_graph=True)
-    gp = torch.autograd.grad(table, list(leaves.values()), rasterize_tiles.scatter_instance_grads(
-        rows_p, n, settings.depth_grad))
+    gk = torch.autograd.grad(table, list(leaves.values()), d_k, retain_graph=True)
+    gp = torch.autograd.grad(table, list(leaves.values()), d_p)
     param_err = {name: scaled_err(a, b) for name, a, b in zip(leaves, gk, gp)}
+    n_slots = rows_p.shape[0]
+    del rows_p
     with torch.no_grad():
         k1_fwd_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles(*kargs), 10)
         ckpt_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles(*kargs, save_ckpt=True), 10)
-        k2_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles_bwd(*bwd_args), 10)
-        k2_plain_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles_bwd_plain(*bwd_args), 2)
-    walked_inst = int(torch.minimum(binned.cnt_allowed.long(), neff * CHUNK).sum())
+        k2_ms = cuda_ms(lambda: rasterize_tiles.composite_tiles_bwd(*bwd_args, n, dg), 10)
+        k2_plain_ms = cuda_ms(lambda: rasterize_tiles.scatter_instance_grads(
+            rasterize_tiles.composite_tiles_bwd_plain(*bwd_args, dg), n, dg), 2)
+    _, slot = walked_slots(binned, neff)
+    walked_inst = int(slot.numel())
     walked_chunks = int(neff.sum())
     k2_pairs = walked_inst * cfg.npix
-    k2_flops = k2_pairs * K1_FLOPS_PER_PAIR + int(contrib_pairs) * K2_FLOPS_PER_CONTRIB
-    # read once: cotangent rows C, D, A, T and T_final (7 per pixel), neff,
-    # the tile starts and counts, the walked checkpoint rows and instances;
-    # written once: the walked instances' gradient rows
-    k2_bytes = (cfg.num_tiles * (7 * cfg.npix + 3) * 4 + walked_chunks * cfg.npix * 4
-                + 2 * walked_inst * 4 * rasterize_tiles.FEAT)
+    k2_rect_pairs = rect_pairs(inst, binned, neff, cfg)
+    n_terms = 10 if dg else 9
+    k2_flops = k2_rect_pairs * K1_FLOPS_PER_PAIR + int(contrib_pairs) * K2_FLOPS_PER_CONTRIB
+    # read once: cotangent rows C, D, A, T and K1's rows C, D, A, T_final (12
+    # per pixel), neff, the tile starts and counts, the walked checkpoint
+    # rows and instances; written once: the [16, P] gradient, and the
+    # walked instances' terms added to it (a read and a write each)
+    k2_bytes = (cfg.num_tiles * (12 * cfg.npix + 3) * 4 + walked_chunks * cfg.npix * 4
+                + walked_inst * 4 * rasterize_tiles.FEAT + rasterize_tiles.FEAT * n * 4
+                + 2 * walked_inst * n_terms * 4)
     k2_bound = max(k2_flops / PEAK_F32, k2_bytes / PEAK_BYTES) * 1e3
     k2_bound_by = "operations" if k2_flops / PEAK_F32 >= k2_bytes / PEAK_BYTES else "bytes"
+    # the bound as it was counted before the warp-uniform rect skip (every
+    # walked pair evaluated, the per-instance rows written)
+    k2_bound_walked = max(
+        (k2_pairs * K1_FLOPS_PER_PAIR + int(contrib_pairs) * K2_FLOPS_PER_CONTRIB) / PEAK_F32,
+        (cfg.num_tiles * (7 * cfg.npix + 3) * 4 + walked_chunks * cfg.npix * 4
+         + 2 * walked_inst * 4 * rasterize_tiles.FEAT) / PEAK_BYTES) * 1e3
     ckpt_bytes = cfg.num_tiles * cfg.max_chunks * cfg.npix * 4
     emit("k2_parity", view=0, max_scaled_err=k2_err, param_scaled_err=param_err, tol=1e-3,
-         ckpt_max_abs_err=ckpt_err, ckpt_flag_flips=flag_flips,
+         run_spread=k2_spread, ckpt_max_abs_err=ckpt_err, ckpt_flag_flips=flag_flips,
          ckpt_walked_values=int(walked_rows.sum()) * cfg.npix, k1_ms=k1_fwd_ms,
          k1_ckpt_ms=ckpt_ms, ckpt_bytes_per_view=ckpt_bytes, kernel_ms=k2_ms,
-         plain_ms=k2_plain_ms, walked_pairs=k2_pairs, contrib_pairs=int(contrib_pairs),
-         walked_chunks=walked_chunks, flops=k2_flops, bytes=k2_bytes, bound_ms=k2_bound,
-         bound_by=k2_bound_by)
+         plain_ms=k2_plain_ms, instance_slots=n_slots, walked_instances=walked_inst,
+         walked_pairs=k2_pairs, rect_pairs=k2_rect_pairs,
+         contrib_pairs=int(contrib_pairs), walked_chunks=walked_chunks, flops=k2_flops,
+         bytes=k2_bytes, bound_ms=k2_bound, bound_by=k2_bound_by,
+         bound_ms_walked=k2_bound_walked)
     assert k2_err <= 1e-3 and max(param_err.values()) <= 1e-3, (k2_err, param_err)
     assert ckpt_err <= 1e-3 and flag_flips <= 1e-3 * int(walked_rows.sum()) * cfg.npix
-    del tiles, ckpt, ptiles, rows_k, rows_p, table, pre
+    del tiles, ckpt, ptiles, d_k, d_p, table, pre
+
+    # ---- tile_usage: K1 and K2 as the main path launches them --------------
+    # the runtime's report for this card at the main path's pixels a thread
+    # (K2 with the train step's depth term), and the waves of its blocks
+    ppt = cfg.npix // 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile_usage = {"K1": kernels.usage("tile_forward", ppt),
+                  "K2": kernels.usage("tile_backward", ppt, int(dg))}
+    for u in tile_usage.values():
+        u["waves"] = cfg.num_tiles / (u["blocks_per_sm"] * sms)
+    emit("tile_usage", pixels_per_thread=ppt, sms=sms, blocks=cfg.num_tiles, **tile_usage)
+
+    # ---- tile_sass: instruction counts of the same K1 and K2 ----------------
+    tile_sass = {}
+    for key, lib, name in (("K1", "tile_forward", f"tile_forward_kernelILi{ppt}E"),
+                           ("K2", "tile_backward",
+                            f"tile_backward_kernelILi{ppt}ELb{int(dg)}E")):
+        counts = sass_counts(kernels.library_path(lib))
+        if counts is not None:
+            tile_sass[key] = next((c for k, c in counts.items() if name in k), None)
+    emit("tile_sass", **tile_sass)
 
     # ---- grad_parity: tiles vs naive gradients on a small scene ------------
     grad_err = {}
@@ -637,13 +738,17 @@ def main() -> int:
          "launches_serve": launches["K1"], "launches_train_step": train_launches["K1"],
          "max_abs_err": k1_err, "ms": k1_mean, "ckpt_ms": ckpt_ms,
          "plain_ms": k1_plain_mean,
-         "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None,
+         "bound_ms_walked": k1_bound_walked, "redesigned": True,
+         "earlier_times": EARLIER_TIMES, **tile_usage["K1"]},
         {"name": "K2 tile_backward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_backward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:455",
          "launches": train_launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None,
+         "bound_ms_walked": k2_bound_walked, "run_spread": k2_spread,
+         "redesigned": True, "earlier_times": EARLIER_TIMES, **tile_usage["K2"]},
         {"name": "K3 blur", "route": "cuda", "source": "gslivm_tpu_torch/csrc/blur.cu",
          "replaces": "gslivm_tpu/ops/blur_pallas.py:34",
          "launches": launches["K3"] + train_launches["K3"],

@@ -1,5 +1,7 @@
-// Per-(instance, pixel) compositing math shared by the forward tile kernel
-// K1 (tile_forward.cu) and the backward tile kernel K2 (tile_backward.cu).
+// Per-(instance, pixel) compositing math and the pixel layout shared by the
+// forward tile kernel K1 (tile_forward.cu) and the backward tile kernel K2
+// (tile_backward.cu); the K1 ablation T2 (microbench_fwdablate.cu) uses the
+// pair math.
 //
 // K2 replays K1's front-to-back compositing from K1's chunk-start
 // checkpoints, so both kernels must take the same accepted / contributing /
@@ -7,9 +9,10 @@
 // arithmetic that decides them lives here once, written with
 // round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn): nvcc may
 // contract a product and a sum into an FMA differently in two kernels, and
-// these intrinsics are never contracted. The result is also the rounding of
-// the plain PyTorch versions, which evaluate the same expressions without
-// FMA.
+// these intrinsics are never contracted. The exp is the hardware __expf
+// (ex2.approx of power * log2(e), flushing subnormal results to 0): the
+// plain PyTorch versions, which evaluate the same expressions without FMA
+// but with an IEEE exp, differ from the kernels by its rounding only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,8 +43,9 @@ __device__ __forceinline__ Splat load_splat(const float* g) {
 // One instance at one pixel:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  G = e^power,
 //   alpha = min(0.99, o G),
-//   accepted if power <= 0, alpha >= 1/255 and (supertile mode) the pixel
-//   lies inside the splat's 16x16 tile rect.
+//   accepted if power <= 0, alpha >= 1/255 and (rect_test) the pixel lies
+//   inside the splat's 16x16 tile rect. K1 and K2 pass rect_test 0 and test
+//   the rect once per warp first (rect_holds); T2 tests it per pixel.
 struct Pair {
   float dx, dy, G, raw_alpha, alpha;
   bool accepted;
@@ -56,7 +60,7 @@ __device__ __forceinline__ Pair eval_pair(const Splat& s, float px, float py,
                                __fmul_rn(__fmul_rn(s.c, r.dy), r.dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(s.b, r.dx), r.dy));
-  r.G = expf(power);
+  r.G = __expf(power);
   r.raw_alpha = __fmul_rn(s.o, r.G);
   r.alpha = fminf(0.99f, r.raw_alpha);
   bool ok = power <= 0.f && r.alpha >= TILE_MIN_ALPHA;
@@ -74,6 +78,71 @@ __device__ __forceinline__ float next_T(float T, float alpha) {
 // The pair's compositing weight alpha T.
 __device__ __forceinline__ float weight(float alpha, float T) {
   return __fmul_rn(alpha, T);
+}
+
+// Supertile mode: whether the 16x16 tile with origin (tx, ty) lies inside
+// the splat's tile rect. The rect bounds are multiples of 16 (the tile rect
+// in pixels), so this is the per-pixel rect test of every pixel of that
+// tile at once.
+__device__ __forceinline__ bool rect_holds(const Splat& s, float tx, float ty) {
+  return tx >= s.x0 && tx < s.x1 && ty >= s.y0 && ty < s.y1;
+}
+
+// Resource use of a tile kernel as the CUDA runtime reports it for the
+// current device, into out[5]: registers and local (stack and spill) bytes
+// per thread, static and dynamic shared bytes per block, and the blocks of
+// kThreads threads with dyn_smem dynamic shared bytes that one SM holds.
+// Returns a cudaError_t.
+template <typename Kernel>
+inline int kernel_usage(Kernel kernel, int dyn_smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, dyn_smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = dyn_smem;
+  out[4] = blocks;
+  return 0;
+}
+
+// Whether the kernels take a pw x ph pixel block: 256..2048 pixels in
+// whole 16x16 tiles (patch_pixel below tiles the block with them).
+inline bool block_ok(int pw, int ph) {
+  const int npix = pw * ph;
+  return pw > 0 && ph > 0 && pw % 16 == 0 && ph % 16 == 0 && npix % kThreads == 0 &&
+         npix / kThreads <= 8;
+}
+
+// Warp-uniform pixel patches. A block of pw x ph pixels (npix = 256 PPT,
+// pw and ph multiples of 16) is cut into npix / 32 groups of 32 pixels,
+// each a 16x2 strip of one 16x16 tile: group g is strip g % 8 (rows
+// 2 (g % 8) and 2 (g % 8) + 1) of the block's tile g / 8, tiles numbered
+// row-major. Warp w owns groups
+// w PPT .. w PPT + PPT - 1, lane l pixel (l % 16, l / 16) of each strip, so
+// a warp's pixels of one group share one tile and the rect test is the
+// same for every lane: at PPT 4 a warp owns a 16x8 patch of one tile, at
+// PPT 8 a whole tile. For thread pixel k this gives its block-relative
+// position (x, y), whose index in the block's row-major pixel order (the
+// order of K1's output rows and checkpoints) is y pw + x, and the
+// block-relative origin (ox, oy) of its tile.
+template <int PPT>
+__device__ __forceinline__ void patch_pixel(int k, int pw, int& x, int& y, int& ox,
+                                            int& oy) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = warp * PPT + k;
+  // when PPT divides 8 the warp's groups share its first group's tile;
+  // written so, the tile origin is the same expression for every k
+  const int tb = (8 % PPT == 0 ? warp * PPT : g) >> 3;
+  const int tiles_per_row = pw >> 4;
+  ox = (tb % tiles_per_row) << 4;
+  oy = (tb / tiles_per_row) << 4;
+  x = ox + (lane & 15);
+  y = oy + 2 * (g & 7) + (lane >> 4);
 }
 
 }  // namespace tile

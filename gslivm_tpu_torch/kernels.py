@@ -10,9 +10,10 @@ at import time: the first wrapper that launches a kernel on a CUDA tensor
 builds it, or a caller builds every kernel at once with `build()`, which
 runs one nvcc per source in parallel.
 
-Flags: -O3, no --use_fast_math (fast exp and flushed denormals would move
-the 1/255 alpha and 1e-4 transmittance decisions of the tile kernel);
-nvcc's default FMA contraction is kept.
+Flags: -O3, no --use_fast_math (fast division and flushed denormals
+everywhere would move the 1/255 alpha and 1e-4 transmittance decisions of
+the tile kernels; their one fast operation, the exp, is named in
+`csrc/tile_common.cuh`); nvcc's default FMA contraction is kept.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ _SIGNATURES = {
     # num_tiles, grid_x, pw, ph, max_chunks, rect_test, contrib_stats, stream
     "tile_forward": ("tile_forward", [_P] * 6 + [_I] * 7 + [_P]),
     # inst, sorted_start, cnt_allowed, g_tiles, fwd_tiles, ckpt, out,
-    # num_tiles, grid_x, pw, ph, max_chunks, rect_test, depth_grad, stream
-    "tile_backward": ("tile_backward", [_P] * 7 + [_I] * 7 + [_P]),
+    # num_gaussians, num_tiles, grid_x, pw, ph, max_chunks, rect_test,
+    # depth_grad, stream
+    "tile_backward": ("tile_backward", [_P] * 7 + [_I] * 8 + [_P]),
     # x, y, n, h, w, taps (host float*), k, stream
     "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _P]),
     # inst, off, nch, out, num_tiles, rows, variant, stream
@@ -52,7 +54,14 @@ _SIGNATURES = {
                              [_P] * 5 + [_I] * 3 + [ctypes.c_float, _P]),
 }
 
+# the tile kernels' libraries also export `<entry>_usage(<ints>, int out[5])`,
+# the resource use of one instantiation; the number of ints it takes
+_USAGE_ARGS = {"tile_forward": 1, "tile_backward": 2}
+USAGE_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+                "blocks_per_sm")
+
 _FNS: dict = {}  # kernel name -> its loaded C entry point
+_DLLS: dict = {}  # kernel name -> its loaded library
 
 
 def nvcc_path() -> str:
@@ -124,8 +133,26 @@ def library(name: str):
     if name not in _FNS:
         build([name])
         fn_name, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), fn_name)
+        _DLLS[name] = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(_DLLS[name], fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
+
+
+def usage(name: str, *instantiation: int) -> dict[str, int]:
+    """Resource use of one instantiation of tile kernel `name` (tile_forward:
+    pixels a thread; tile_backward: pixels a thread and depth_grad) as the
+    CUDA runtime reports it for the current device: registers and local
+    (stack and spill) bytes per thread, static and dynamic shared bytes per
+    block, and the blocks one SM holds at once."""
+    library(name)
+    fn = getattr(_DLLS[name], f"{_SIGNATURES[name][0]}_usage")
+    fn.argtypes = [_I] * _USAGE_ARGS[name] + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(USAGE_FIELDS))()
+    err = fn(*instantiation, out)
+    if err:
+        raise RuntimeError(f"{name}_usage{instantiation} failed: CUDA error {err}")
+    return dict(zip(USAGE_FIELDS, out))

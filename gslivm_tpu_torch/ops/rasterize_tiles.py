@@ -6,20 +6,23 @@ the [16, P] rank-ordered feature table -> gather into the sorted instance
 layout -> the tile compositor K1 (`csrc/tile_forward.cu`) -> image. For a
 gradient, K1 also writes its chunk-start transmittance checkpoints, and
 the backward tile kernel K2 (`csrc/tile_backward.cu`) turns the image
-cotangents into one gradient row per instance; a per-gaussian `index_add_`
-over the rank id gives the table's gradient, and autograd carries it
-through the rank permutation and `preprocess` to the parameters.
+cotangents into the table's gradient, summed per gaussian by the rank id
+inside the kernel; autograd carries it through the rank permutation and
+`preprocess` to the parameters.
 
 `composite_tiles` / `composite_tiles_bwd` launch K1 / K2 on CUDA tensors
-and take their plain PyTorch versions (`composite_tiles_plain`,
-`composite_tiles_bwd_plain`) only for CPU tensors. The plain versions
+and take their plain PyTorch versions only for CPU tensors: K1's is
+`composite_tiles_plain`, K2's is `composite_tiles_bwd_plain` (one gradient
+row per instance, the JAX kernel's output) followed by
+`scatter_instance_grads` (the per-gaussian sum). The plain versions
 repeat the TPU kernels' per-chunk math (`_chunk_terms`) vectorised over a
 group of tiles, including its Hillis-Steele prefix scans, so that they are
 the closest CPU twins of the JAX kernels run in interpret mode.
 
 The JAX kernels' CHUNK-aligned gradient layout (`pad_cols`/`poff`) and its
 compacted variant (`grad_cols`) serve the TPU's aligned DMA writes and its
-per-index scatter cost; K2 writes each instance's row in place instead.
+per-index scatter cost; K2 adds each walked instance's gradient into its
+gaussian's column instead, so the port has neither.
 """
 
 from __future__ import annotations
@@ -40,11 +43,12 @@ from .rasterize_reference import (
 
 FEAT = 16  # packed instance feature columns (15 used)
 # feature columns; _FX0.._FY1 are the splat's 16x16 TILE-rect bounds in
-# pixels, used only in supertile mode (the per-pixel rect test)
+# pixels, used only in supertile mode (the per-pixel rect test); they are
+# multiples of 16, which lets K1 and K2 test them once per warp
 (_FX, _FY, _FA, _FB, _FC, _FO, _FR, _FG, _FB2, _FD,
  _FX0, _FX1, _FY0, _FY1) = range(14)
-_FID = 14  # the column's own rank id (exact f32): K2 copies it into its
-           # gradient rows, and the per-gaussian scatter indexes by it
+_FID = 14  # the column's own rank id (exact f32): K2 adds each instance's
+           # gradient at it, as the plain per-gaussian scatter does
 # the plain compositors step as many tiles at once as keep one [tiles, CHUNK,
 # npix] f32 array within this many elements (64 MB), so that a 1080p frame
 # fits on the card
@@ -53,7 +57,10 @@ _PLAIN_GROUP_ELEMENTS = 1 << 24
 
 class TileConfig(NamedTuple):
     """Static geometry of a tile render: grid_x * grid_y blocks of pw x ph
-    pixels (pw = 16 * block_x, ph = 16 * block_y)."""
+    pixels (pw = 16 * block_x, ph = 16 * block_y). With rect_test the
+    kernels K1 and K2 take the instances' tile-rect columns (_FX0.._FY1) to
+    be multiples of 16, as _build_rank_table makes them, and test them once
+    per warp."""
 
     grid_x: int
     grid_y: int
@@ -289,9 +296,11 @@ def _check_inst(inst):
 
 def _check_inst_and_block(inst, cfg: TileConfig):
     _check_inst(inst)
-    if cfg.npix % 256 or not 1 <= cfg.npix // 256 <= 8:
+    # the kernels tile a block with whole 16x16 tiles (tile_common.cuh)
+    if (cfg.pw % TILE or cfg.ph % TILE or cfg.npix % 256
+            or not 1 <= cfg.npix // 256 <= 8):
         raise ValueError(f"pixel block {cfg.pw}x{cfg.ph} is not 256..2048 "
-                         "pixels in multiples of 256")
+                         f"pixels in whole {TILE}x{TILE} tiles")
 
 
 def composite_tiles(inst, sorted_start, tile_nchunks, cnt_allowed,
@@ -335,8 +344,9 @@ composite_tiles.launches = 0  # K1 launches since the last reset
 def composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed, g_tiles,
                               fwd_tiles, ckpt, cfg: TileConfig,
                               depth_grad: bool = True):
-    """The plain PyTorch version of K2 (rasterize_pallas.py:_bwd_kernel):
-    the cotangents g_tiles [T, 8, npix] of K1's rows, K1's output fwd_tiles
+    """The JAX kernel's per-instance rows (rasterize_pallas.py:_bwd_kernel);
+    followed by scatter_instance_grads, the plain version of K2. The
+    cotangents g_tiles [T, 8, npix] of K1's rows, K1's output fwd_tiles
     and its checkpoints ckpt -> one gradient row per instance, [L, FEAT]:
     d mean2d (2), d conic (3), d opacity, d rgb (3), d depth (0 without
     depth_grad), zeros, the rank id in column _FID. Rows of instances in
@@ -411,16 +421,21 @@ def composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed, g_tiles,
 
 
 def composite_tiles_bwd(inst, sorted_start, cnt_allowed, g_tiles, fwd_tiles,
-                        ckpt, cfg: TileConfig, depth_grad: bool = True):
-    """K2 wrapper: per-instance gradient rows [L, FEAT] from the cotangents
-    g_tiles [T, 8, npix] of K1's output fwd_tiles and K1's checkpoints ckpt
-    [T, max_chunks, npix] (see composite_tiles_bwd_plain). CPU tensors take
-    the plain version; CUDA tensors launch the kernel on the current
-    stream, or raise."""
+                        ckpt, cfg: TileConfig, num_gaussians: int,
+                        depth_grad: bool = True):
+    """K2 wrapper: the rank table's gradient [FEAT, num_gaussians] from the
+    cotangents g_tiles [T, 8, npix] of K1's output fwd_tiles and K1's
+    checkpoints ckpt [T, max_chunks, npix]: each walked instance's gradient
+    row (see composite_tiles_bwd_plain) summed by its rank id (column _FID,
+    in [0, num_gaussians)), as scatter_instance_grads sums the plain rows.
+    CPU tensors take that plain pair; CUDA tensors launch the kernel on the
+    current stream, or raise. On the card a gaussian instanced in several
+    tiles is summed by atomics in run-to-run order (f32 rounding)."""
     if not inst.is_cuda:
-        return composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed,
+        rows = composite_tiles_bwd_plain(inst, sorted_start, cnt_allowed,
                                          g_tiles, fwd_tiles, ckpt, cfg,
                                          depth_grad)
+        return scatter_instance_grads(rows, num_gaussians, depth_grad)
     nt = cfg.num_tiles
     _check_inst_and_block(inst, cfg)
     _check_int_rows(nt, inst.device, sorted_start=sorted_start,
@@ -431,13 +446,13 @@ def composite_tiles_bwd(inst, sorted_start, cnt_allowed, g_tiles, fwd_tiles,
                 or tuple(v.shape) != (nt, rows, cfg.npix) or not v.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 "
                              f"[{nt}, {rows}, {cfg.npix}] tensor on {inst.device}")
-    out = torch.zeros((inst.shape[0], FEAT), dtype=torch.float32, device=inst.device)
+    out = torch.zeros((FEAT, num_gaussians), dtype=torch.float32, device=inst.device)
     fn = kernels.library("tile_backward")
     with torch.cuda.device(inst.device):
         err = fn(inst.data_ptr(), sorted_start.data_ptr(), cnt_allowed.data_ptr(),
                  g_tiles.data_ptr(), fwd_tiles.data_ptr(), ckpt.data_ptr(),
-                 out.data_ptr(), nt, cfg.grid_x, cfg.pw, cfg.ph, cfg.max_chunks,
-                 int(cfg.rect_test), int(depth_grad),
+                 out.data_ptr(), num_gaussians, nt, cfg.grid_x, cfg.pw, cfg.ph,
+                 cfg.max_chunks, int(cfg.rect_test), int(depth_grad),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"tile_backward kernel launch failed: CUDA error {err}")
@@ -452,7 +467,7 @@ def scatter_instance_grads(rows, num_gaussians: int, depth_grad: bool = True):
     """Per-instance gradient rows [L, FEAT] -> the rank table's gradient
     [FEAT, P]: rows summed per gaussian by the rank id in column _FID
     (rasterize_pallas._render_from_table_bwd). Unwalked rows carry id 0
-    and zero gradients."""
+    and zero gradients. The plain version of K2's per-gaussian sum."""
     ndg = 10 if depth_grad else 9  # the depth row is skipped with depth_grad
     dg = rows.new_zeros((num_gaussians, ndg)).index_add_(
         0, rows[:, _FID].long(), rows[:, :ndg])
@@ -462,7 +477,7 @@ def scatter_instance_grads(rows, num_gaussians: int, depth_grad: bool = True):
 class _RenderFromTable(torch.autograd.Function):
     """The tile render as one differentiable function of the rank table
     (rasterize_pallas._render_from_table with its custom VJP): K1 with
-    checkpoints forward, K2 and the per-gaussian scatter backward."""
+    checkpoints forward, K2 (summed per gaussian) backward."""
 
     @staticmethod
     def forward(ctx, table, gid_sorted, sorted_start, tile_nchunks,
@@ -477,10 +492,9 @@ class _RenderFromTable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_tiles):
         inst, sorted_start, cnt_allowed, tiles, ckpt = ctx.saved_tensors
-        rows = composite_tiles_bwd(inst, sorted_start, cnt_allowed,
-                                   g_tiles.contiguous(), tiles, ckpt, ctx.cfg,
-                                   ctx.depth_grad)
-        d_table = scatter_instance_grads(rows, ctx.n, ctx.depth_grad)
+        d_table = composite_tiles_bwd(inst, sorted_start, cnt_allowed,
+                                      g_tiles.contiguous(), tiles, ckpt, ctx.cfg,
+                                      ctx.n, ctx.depth_grad)
         return d_table, None, None, None, None, None, None
 
 

@@ -2,8 +2,10 @@
 tools/microbench_kernelcost.py; no kernel of its own).
 
 Drives K1, K2, and the differentiable tile render (gather + K1 with
-checkpoints, then K2 + the per-gaussian scatter; timed by CUDA events and,
-as `_busy_ms`, by the device time of its kernels) through
+checkpoints, then K2, which sums the gradient per gaussian, and the
+gradient's permutation back; the `fwd_bwd_scatter` fields keep their name;
+timed by CUDA events and, as `_busy_ms`, by the device time of its
+kernels) through
 `rasterize_tiles.render_from_table` on FABRICATED runs: the JAX tool's case
 of 200,000 gaussians on 60 x 34 supertiles of 32 x 32 pixels, uniform chunk
 counts per tile, the rect test on, opacities too small ever to stop a
@@ -87,7 +89,7 @@ def loss_of(tiles):
 
 
 def run_case(nch: int, device="cuda", reps: int = 10) -> dict:
-    """ms of K1, K2, the forward render and forward + backward + scatter."""
+    """ms of K1, K2, the forward render and forward + backward."""
     table, binned, cfg = fabricated_case(nch, device)
     args = (binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed)
     with torch.no_grad():
@@ -100,7 +102,7 @@ def run_case(nch: int, device="cuda", reps: int = 10) -> dict:
                             device=device)
         k2 = device_time_ms(lambda: rt.composite_tiles_bwd(
             inst, binned.sorted_start, binned.cnt_allowed, g_tiles, tiles, ckpt, cfg,
-            depth_grad=False), reps=reps, device=device)
+            table.shape[1], depth_grad=False), reps=reps, device=device)
         fwd = device_time_ms(lambda: rt.render_from_table(table, binned, cfg, False),
                              reps=reps, device=device)
     leaf = table.clone().requires_grad_(True)

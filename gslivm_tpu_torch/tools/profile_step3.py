@@ -18,9 +18,9 @@ chunks per tile. It reports:
   block (train3 - train3 without the pair).
 
 The JAX tool also fits `RasterizeSettings.grad_capacity`, the TPU's
-compacted gradient layout; K2 writes each instance's row in place, so the
-port's settings have no such field and this tool has no such step. Run on
-the card:
+compacted gradient layout; K2 sums each walked instance's gradient into its
+gaussian's column itself, so the port's settings have no such field and
+this tool has no such step. Run on the card:
 
     python -m gslivm_tpu_torch.tools.profile_step3
 """

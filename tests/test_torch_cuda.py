@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from gslivm_tpu_torch import convert
+from gslivm_tpu_torch import convert, kernels
 from gslivm_tpu_torch.models import training
 from gslivm_tpu_torch.models.cameras import make_camera
 from gslivm_tpu_torch.ops import blur, losses, rasterize, rasterize_reference, rasterize_tiles
@@ -153,39 +153,44 @@ def test_k1_checkpoints_and_k2_match_plain_versions(cuda, block):
     # prefix product; the done flag (the sign) flips on at most 0.1%
     assert float((ck.abs() - cp.abs())[walked].abs().max()) <= 1e-3
     assert int(((ck < 0) != (cp < 0))[walked].sum()) <= 1e-3 * int(walked.sum()) * cfg.npix
-    _k2_matches_plain(inst, binned.sorted_start, binned.cnt_allowed, k, ck, cfg, rng)
+    _k2_matches_plain(inst, binned.sorted_start, binned.cnt_allowed, k, ck, cfg, rng,
+                      binned.dorder.numel())
     scene = [x.requires_grad_(True) for x in _scene(rng, 400, cuda)]
     _grads_match_naive(make_camera(np.eye(3), np.zeros(3), 64, 48, fovx=1.0, fovy=0.8,
                                    device=cuda), scene, block)
 
 
-def _k2_matches_plain(inst, start, cnt, tiles, ckpt, cfg, rng):
-    """K2 against its plain version on identical inputs: per gradient row,
-    max abs difference over max(|plain row|, 1e-12) <= 1e-3 (f32 sums over
-    the block's pixels in another order, and the replay's sequential T
-    against the prefix product)."""
+def _k2_matches_plain(inst, start, cnt, tiles, ckpt, cfg, rng, n):
+    """K2 (the gradient summed per gaussian) against its plain version, the
+    per-instance rows summed by scatter_instance_grads, on identical
+    inputs: per gradient row of the table, max abs difference over
+    max(|plain row|, 1e-12) <= 1e-3 (f32 sums over the block's pixels in
+    another order, the replay's sequential T against the prefix product,
+    the later contributors' sum as the pixel total minus a running prefix,
+    a gaussian's instances summed by atomics in run-to-run order)."""
     g = torch.as_tensor(rng.normal(size=tuple(tiles.shape)), dtype=torch.float32,
                         device=inst.device)
     g[:, 6:] = 0.0
     for depth_grad in (True, False):
         before = rasterize_tiles.composite_tiles_bwd.launches
         k = rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, tiles, ckpt, cfg,
-                                                depth_grad)
+                                                n, depth_grad)
         torch.cuda.synchronize()
         assert rasterize_tiles.composite_tiles_bwd.launches == before + 1
-        p = rasterize_tiles.composite_tiles_bwd_plain(inst, start, cnt, g, tiles, ckpt,
-                                                      cfg, depth_grad)
-        assert torch.equal(k[:, rasterize_tiles._FID], p[:, rasterize_tiles._FID])
+        p = rasterize_tiles.scatter_instance_grads(
+            rasterize_tiles.composite_tiles_bwd_plain(inst, start, cnt, g, tiles, ckpt,
+                                                      cfg, depth_grad), n, depth_grad)
+        assert k.shape == p.shape == (rasterize_tiles.FEAT, n)
         for c in range(10):
-            scale = max(float(p[:, c].abs().max()), 1e-12)
-            assert float((k[:, c] - p[:, c]).abs().max()) <= 1e-3 * scale, (depth_grad, c)
-        assert depth_grad or not bool(k[:, 9].any())
+            scale = max(float(p[c].abs().max()), 1e-12)
+            assert float((k[c] - p[c]).abs().max()) <= 1e-3 * scale, (depth_grad, c)
+        assert not bool(k[10:].any()) and (depth_grad or not bool(k[9].any()))
 
 
 def test_k2_on_crafted_runs(cuda):
     """Tile 0 saturates inside its first chunk (neff 1 of 3): K2 walks only
-    chunk 0 and leaves the rows of chunks 1-2 zero; tile 1's run starts off
-    a 128 boundary."""
+    chunk 0 and adds nothing for the instances of chunks 1-2; tile 1's run
+    starts off a 128 boundary. Each instance is its own gaussian."""
     rng = np.random.default_rng(7)
     cnt = torch.tensor([300, 200], dtype=torch.int32, device=cuda)
     start = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
@@ -201,10 +206,105 @@ def test_k2_on_crafted_runs(cuda):
     cfg = rasterize_tiles.TileConfig(grid_x=2, grid_y=1, max_chunks=8)
     k, ck = rasterize_tiles.composite_tiles(inst, start, nch, cnt, cfg, save_ckpt=True)
     assert k[:, 7, 0].tolist() == [1.0, 2.0]
-    _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng)
+    _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng, 500)
     g = torch.ones_like(k)
-    rows = rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, k, ck, cfg)
-    assert bool(rows[:128, 6].abs().gt(0).any()) and not bool(rows[128:300].any())
+    d = rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, k, ck, cfg, 500)
+    assert bool(d[6, :128].abs().gt(0).any()) and not bool(d[:, 128:300].any())
+
+
+def _crafted_tiles(rng, block, n, opac, clamped=False):
+    """A binned scene built by hand: n gaussians on a 2x2 grid of
+    (16 bx) x (16 by) pixel blocks, each gaussian's tile rect (whole 16x16
+    tiles, as binning makes them) spanning a few tiles, so that rects end
+    inside a block and straddle block edges; every block's run holds the
+    gaussians whose rect meets it, in id order. With `clamped`, a third of
+    the gaussians have opacity 1 and sit on a pixel centre, so alpha is
+    clamped at 0.99 there. Returns the inputs of K1 and K2 and the number
+    of tiles each gaussian is instanced in."""
+    bx, by = block
+    pw, ph = 16 * bx, 16 * by
+    W, H = 2 * pw, 2 * ph
+    feat = np.zeros((n, rasterize_tiles.FEAT), np.float32)
+    x, y = rng.uniform(0, W, n), rng.uniform(0, H, n)
+    radius = rng.uniform(4, 40, n)
+    feat[:, rasterize_tiles._FO] = rng.uniform(*opac, n)
+    if clamped:
+        x[::3], y[::3] = np.floor(x[::3]), np.floor(y[::3])
+        feat[::3, rasterize_tiles._FO] = 1.0
+    feat[:, rasterize_tiles._FX], feat[:, rasterize_tiles._FY] = x, y
+    feat[:, rasterize_tiles._FA] = feat[:, rasterize_tiles._FC] = 9.0 / radius**2
+    feat[:, rasterize_tiles._FB] = rng.uniform(-0.2, 0.2, n) * 9.0 / radius**2
+    feat[:, rasterize_tiles._FR:rasterize_tiles._FD + 1] = rng.uniform(0, 2, (n, 4))
+    x0, x1 = np.floor((x - radius) / 16) * 16, np.ceil((x + radius) / 16) * 16
+    y0, y1 = np.floor((y - radius) / 16) * 16, np.ceil((y + radius) / 16) * 16
+    feat[:, rasterize_tiles._FX0], feat[:, rasterize_tiles._FX1] = x0, x1
+    feat[:, rasterize_tiles._FY0], feat[:, rasterize_tiles._FY1] = y0, y1
+    feat[:, rasterize_tiles._FID] = np.arange(n)
+    runs = [np.flatnonzero((x0 < (bxi + 1) * pw) & (x1 > bxi * pw)
+                           & (y0 < (byi + 1) * ph) & (y1 > byi * ph))
+            for byi in range(2) for bxi in range(2)]
+    gid = np.concatenate(runs)
+    cnt = np.asarray([len(r) for r in runs], np.int32)
+    start = (np.cumsum(cnt) - cnt).astype(np.int32)
+    nch = ((cnt + 127) // 128).astype(np.int32)
+    cfg = rasterize_tiles.TileConfig(grid_x=2, grid_y=2, pw=pw, ph=ph,
+                                     rect_test=block != (1, 1), contrib_stats=True,
+                                     max_chunks=8)
+    return feat[gid], start, nch, cnt, cfg, np.bincount(gid, minlength=n)
+
+
+@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("case", ["rect_edges", "done_mid_chunk", "alpha_clamped"])
+def test_k1_k2_on_crafted_tiles(cuda, case, block):
+    """K1 (rows, n_contrib, neff, checkpoints) and K2 against their plain
+    versions on hand-built runs: warp patches whose tiles straddle the
+    instances' tile-rect edges, pixels that finish mid-chunk, alpha clamped
+    at 0.99; gaussians instanced in several blocks have their instances
+    summed by K2's atomics. Gates as in the full-size checks."""
+    rng = np.random.default_rng({"rect_edges": 30, "done_mid_chunk": 31,
+                                 "alpha_clamped": 32}[case])
+    n, opac = {"rect_edges": (400, (0.05, 0.4)), "done_mid_chunk": (600, (0.7, 0.98)),
+               "alpha_clamped": (400, (0.3, 0.9))}[case]
+    inst_np, start, nch, cnt, cfg, mult = _crafted_tiles(
+        rng, block, n, opac, clamped=case == "alpha_clamped")
+    assert int(nch.max()) >= 2 and int(mult.max()) >= 3  # several chunks, shared gaussians
+    inst = torch.as_tensor(inst_np, device=cuda)
+    start, nch, cnt = (torch.as_tensor(a, device=cuda) for a in (start, nch, cnt))
+    k, ck = rasterize_tiles.composite_tiles(inst, start, nch, cnt, cfg, save_ckpt=True)
+    p, cp = rasterize_tiles.composite_tiles_plain(inst, start, nch, cnt, cfg, save_ckpt=True)
+    for row in range(6):
+        scale = max(float(p[:, row].abs().max()), 1.0)
+        assert float((k[:, row] - p[:, row]).abs().max()) <= 1e-3 * scale, row
+    assert int((k[:, 6] != p[:, 6]).sum()) <= 1e-3 * k[:, 6].numel() + 1
+    assert torch.equal(k[:, 7, 0], p[:, 7, 0])
+    neff = k[:, 7, 0].long()
+    walked = torch.arange(cfg.max_chunks, device=cuda)[None, :] < neff[:, None]
+    assert float((ck.abs() - cp.abs())[walked].abs().max()) <= 1e-3
+    assert int(((ck < 0) != (cp < 0))[walked].sum()) <= 1e-3 * int(walked.sum()) * cfg.npix + 1
+    if case == "done_mid_chunk":
+        # pixels stop inside a chunk: some blocks end their walk early
+        assert bool((neff < nch.long()).any())
+    _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng, n)
+
+
+def test_k2_run_to_run_spread(cuda):
+    """Five launches of K2 on one input (block 2x2, gaussians instanced in
+    up to four blocks): the atomics sum a gaussian's instances in run-to-run
+    order, so the outputs may differ by f32 rounding only, <= 1e-5 of each
+    row's scale."""
+    rng = np.random.default_rng(33)
+    inst_np, start, nch, cnt, cfg, _ = _crafted_tiles(rng, (2, 2), 400, (0.05, 0.4))
+    inst = torch.as_tensor(inst_np, device=cuda)
+    start, nch, cnt = (torch.as_tensor(a, device=cuda) for a in (start, nch, cnt))
+    k, ck = rasterize_tiles.composite_tiles(inst, start, nch, cnt, cfg, save_ckpt=True)
+    g = torch.as_tensor(rng.normal(size=tuple(k.shape)), dtype=torch.float32, device=cuda)
+    g[:, 6:] = 0.0
+    runs = [rasterize_tiles.composite_tiles_bwd(inst, start, cnt, g, k, ck, cfg, 400)
+            for _ in range(5)]
+    for r in runs[1:]:
+        for c in range(10):
+            scale = max(float(runs[0][c].abs().max()), 1e-12)
+            assert float((r[c] - runs[0][c]).abs().max()) <= 1e-5 * scale, c
 
 
 def test_train_step_on_card_lowers_the_loss(cuda):
@@ -285,3 +385,20 @@ def test_wrappers_reject_bad_inputs(cuda):
         rasterize_tiles.composite_tiles(inst, i32.long(), i32, i32, cfg)
     with pytest.raises(ValueError, match="float32"):
         blur.blur_cuda(torch.zeros((1, 8, 8), dtype=torch.float64, device=cuda), [1.0])
+    # 256 pixels, but not in whole 16x16 tiles
+    with pytest.raises(ValueError, match="16x16 tiles"):
+        rasterize_tiles.composite_tiles(inst, i32, i32, i32,
+                                        rasterize_tiles.TileConfig(1, 1, pw=32, ph=8))
+
+
+def test_tile_kernels_report_their_resources(cuda):
+    """The runtime's report of K1 and K2 at 4 pixels a thread (the default
+    2x2 supertile): the resident blocks per SM their launch bounds ask for
+    (K1 4, K2 3) and K2's 48 KB of dynamic shared memory."""
+    k1 = kernels.usage("tile_forward", 4)
+    assert k1["blocks_per_sm"] >= 4 and k1["dynamic_smem"] == 0, k1
+    assert k1["static_smem"] == 128 * 16 * 4, k1
+    for depth_grad in (0, 1):
+        k2 = kernels.usage("tile_backward", 4, depth_grad)
+        assert k2["blocks_per_sm"] >= 3 and k2["dynamic_smem"] == 48 * 1024, k2
+        assert 0 < k2["registers"] <= 80, k2
