@@ -26,42 +26,48 @@ and preprocess, and takes a six-group Adam step.
 
 Phases print one JSON line each: env, build, reference (K1's plain version
 renders each view: the ground truth the views are scored against), serve
-(the serving path, with every kernel launch counter set to 0 just before
-it and read just after), profile (torch.profiler over one served view:
-device busy time, idle share, kernels by device time), k1_parity (with
-the pairs inside each instance's tile-rect, the work of K1's bound),
-k3_parity, train (10 steps of the training path; the counters are set to 0
-just before its first step and read just after), train_profile (with the
-index_add_ kernels left on the step), k2_parity (K1's checkpoints and K2
-against their plain versions at full size, with the cotangents of view 0's
-real loss; K2's spread over 5 launches), tile_usage (registers, local
-bytes, shared memory and resident blocks per SM of K1 and K2 as the CUDA
-runtime reports them for the main path's launches, and the waves of
-their blocks), tile_sass (instruction counts of the same two kernels),
-grad_parity (the tiles backend's parameter gradients against the naive
-backend's on a small scene).
+(the serving path, with every kernel launch counter set to 0 just before it
+and read just after), profile (torch.profiler over one served view: device
+busy time, idle share, kernels by device time), k1_parity (with the pairs
+inside each instance's tile-rect, the work of K1's bound), k3_parity (K3 on
+view 0's served SSIM stack [15, 1080, 1920] and on the training stack [9,
+1080, 1920], each in both tap orientations, with its time, bound, plain
+version, a clone of the stack (copy_ms, the card's byte rate at that size)
+and F.conv2d (conv2d_ms, the library yardstick), and K3's registers and
+blocks per SM from the CUDA runtime), train (10 steps of the training path;
+the counters are set to 0 just before its first step and read just after),
+train_profile (with the index_add_ kernels left on the step), k2_parity
+(K1's checkpoints and K2 against their plain versions at full size, with
+the cotangents of view 0's real loss; K2's spread over 5 launches),
+tile_usage (registers, local bytes, shared memory and resident blocks per
+SM of K1 and K2 as the CUDA runtime reports them for the main path's
+launches, and the waves of their blocks), tile_sass (instruction counts of
+the same two kernels), grad_parity (the tiles backend's parameter gradients
+against the naive backend's on a small scene).
 
 The measurement-tools path (`gslivm_tpu_torch/tools/`), each phase through
-the tool's own `run`/`sweep` entry point: t1_fetch (T1,
-`csrc/microbench_fetch.cu`: per-tile sums of 2,040 runs of 4 chunks read
-four ways; its launch counter set to 0 just before the tool's run and read
-just after; then each variant against its plain version, and the library
-yardstick for the aligned case), t2_ablate (T2,
-`csrc/microbench_fwdablate.cu`: K1's chunk walk at 2,040 tiles x 4 chunks
-with one piece removed at a time, its counter around the tool's run, each
-variant against its plain version at full size, and the SASS instruction
-counts of each variant where the toolkit has cuobjdump), kernelcost (K1,
-K2 and the differentiable render on fabricated runs of 1, 2, 4 and 8
-chunks per tile: the per-chunk slope and per-tile intercept, with neff ==
-nch asserted in every tile) and step_profile (the overdraw statistics and
-the stage times of the three-camera train step at the JAX tool's budgets).
+the tool's own `run`/`sweep` entry point: kernelcost (K1, K2 and the
+differentiable render on fabricated runs of 1, 2, 4 and 8 chunks per tile:
+the per-chunk slope and per-tile intercept, with neff == nch asserted in
+every tile), t1_fetch (T1, `csrc/microbench_fetch.cu`: per-tile sums of
+2,040 runs of 4 chunks read four ways; its launch counter set to 0 just
+before the tool's run and read just after; then each variant against its
+plain version, and the library yardstick for the aligned case), t2_ablate
+(T2, `csrc/microbench_fwdablate.cu`: K1's chunk walk, in K1's warp patches,
+at 2,040 tiles x 4 chunks with one piece removed at a time, its counter
+around the tool's run, each variant against its plain version at full size
+with its registers and blocks per SM, FULL's time per chunk beside K1's
+slope from kernelcost, and the SASS instruction counts of each variant
+where the toolkit has cuobjdump) and step_profile (the overdraw statistics
+and the stage times of the three-camera train step at the JAX tool's
+budgets).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
-launches in kernelcost and step_profile; K1 and K2 carry their tile_usage
-and say where their times before the redesign stand, which this script
-does not measure), and last {"ok": true, "device":
+launches in kernelcost and step_profile; K1, K2, K3 and T2 carry their
+registers and blocks per SM and say where their times before the redesign
+stand, which this script does not measure), and last {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero; without CUDA the script
 exits 1 and prints no result.
 
@@ -79,8 +85,9 @@ product, the later contributors' sum as the pixel total minus a running
 prefix against a suffix scan, a gaussian's instances summed by atomics in
 run-to-run order); the same gate holds the tiles backend's
 gradients against the naive backend's (the JAX bench's on-chip oracle
-gate, bench.py:220-228). K3 against the plain shift-add: max abs <= 1e-5
-(f32 sums of 121 taps, FMA allowed). T1 against its plain version, every
+gate, bench.py:220-228). K3 against the plain shift-add, both stacks and
+both tap orientations: max abs <= 1e-5 (f32 sums of 121 taps in the same
+order, FMA allowed). T1 against its plain version, every
 variant: relative error <= 1e-5 per tile (f32 sums of 8,192 squares in
 another order). T2 against its plain version, every variant, rows C0-T:
 max abs deviation over max(|plain|, 1) per row <= 1e-3 (K1's gate:
@@ -115,8 +122,8 @@ K1_FLOPS_PER_PAIR = 15
 K2_FLOPS_PER_CONTRIB = 30
 TRAIN_STEPS = 10
 SIMI_SEED = 1
-# where the times of K1 and K2 before their redesign stand; this script
-# measures only the kernels in the checkout
+# where the times of the redesigned kernels (K1, K2, K3, T2) before their
+# redesign stand; this script measures only the kernels in the checkout
 EARLIER_TIMES = "PERF.md section 6"
 
 
@@ -416,33 +423,50 @@ def main() -> int:
     assert k1_err <= 1e-3, k1_err
     assert ncontrib_diff <= 1e-3 * n_pix and neff_diff <= 1e-3 * n_tiles
 
-    # ---- k3_parity: K3 on the SSIM stack of view 0 -------------------------
+    # ---- k3_parity: K3 on the SSIM stacks of view 0 ------------------------
+    # served: ssim without ref_stats blurs [a, b, a^2, b^2, ab] (15 slices);
+    # training: ssim with the cached GT statistics blurs [a, a^2, ab] (9)
     taps = losses.gaussian_1d()
     a, b = renders[0].color, refs[0]["color"]
-    stack = torch.cat([a, b, a * a, b * b, a * b]).contiguous()  # [15, H, W]
+    stacks = {"serve": torch.cat([a, b, a * a, b * b, a * b]).contiguous(),
+              "train": torch.cat([a, a * a, a * b]).contiguous()}
+    k3 = {}
     with torch.no_grad():
-        y = blur.blur_cuda(stack, taps)
-        y_plain = blur.blur_plain(stack, taps)
-        k3_err = float((y - y_plain).abs().max())
-        g = torch.rand_like(stack)
-        vjp_err = float((blur.blur_cuda(g, taps[::-1]) - blur.blur_plain(g, taps[::-1])).abs().max())
-        k3_ms = cuda_ms(lambda: blur.blur_cuda(stack, taps), 20)
-        k3_plain_ms = cuda_ms(lambda: blur.blur_plain(stack, taps), 5)
+        for key, st in stacks.items():
+            errs = {}
+            for orient, t in (("taps", taps), ("reversed", taps[::-1])):
+                errs[orient] = float((blur.blur_cuda(st, t) - blur.blur_plain(st, t)).abs().max())
+            n_el = st.numel()
+            k3_bytes = 2 * n_el * 4              # one read, one write per element
+            k3_flops = n_el * 2 * 2 * len(taps)  # two passes of k multiply-adds
+            n, h, w = st.shape
+            vec = blur.float4_rows(w, st.data_ptr(), st.data_ptr())
+            resident = blur.resident_blocks(torch.cuda.current_device(), len(taps), vec)
+            strip = blur.strip_rows(n, h, w, resident)
+            k3[key] = {"shape": list(st.shape), "max_abs_err": errs, "vec": vec, "strip": strip,
+                       "blocks": n * -(-w // blur.BLOCK_COLS) * -(-h // strip),
+                       "resident_blocks": resident,
+                       "kernel_ms": cuda_ms(lambda st=st: blur.blur_cuda(st, taps), 50),
+                       "copy_ms": cuda_ms(lambda st=st: st.clone(), 50),
+                       "plain_ms": cuda_ms(lambda st=st: blur.blur_plain(st, taps), 5),
+                       "bytes": k3_bytes, "flops": k3_flops,
+                       "bound_ms": max(k3_bytes / PEAK_BYTES, k3_flops / PEAK_F32) * 1e3,
+                       "bound_by": ("bytes" if k3_bytes / PEAK_BYTES >= k3_flops / PEAK_F32
+                                    else "operations")}
         # library yardstick: one cuDNN convolution in full f32 (never on the path)
+        stack = stacks["serve"]
         torch.backends.cudnn.allow_tf32 = False
         w2d = torch.as_tensor(np.outer(taps, taps), device=dev)[None, None]
         conv = torch.nn.functional.conv2d(stack[:, None], w2d, padding=len(taps) // 2)[:, 0]
-        conv_err = float((conv - y_plain).abs().max())
+        conv_err = float((conv - blur.blur_plain(stack, taps)).abs().max())
         lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
             stack[:, None], w2d, padding=len(taps) // 2), 20)
-    n_el = stack.numel()
-    k3_bytes = 2 * n_el * 4          # one read, one write per element
-    k3_flops = n_el * 2 * 2 * len(taps)  # two passes of k multiply-adds
-    k3_bound = max(k3_bytes / PEAK_BYTES, k3_flops / PEAK_F32) * 1e3
-    emit("k3_parity", shape=list(stack.shape), max_abs_err=k3_err, vjp_max_abs_err=vjp_err,
-         tol=1e-5, kernel_ms=k3_ms, plain_ms=k3_plain_ms, conv2d_ms=lib_ms,
-         conv2d_max_abs_err=conv_err)
-    assert k3_err <= 1e-5 and vjp_err <= 1e-5, (k3_err, vjp_err)
+    k3_usage = kernels.usage("blur", len(taps), int(k3["serve"]["vec"]))
+    k3_err = max(e for r in k3.values() for e in r["max_abs_err"].values())
+    emit("k3_parity", tol=1e-5, stacks=k3, conv2d_ms=lib_ms, conv2d_max_abs_err=conv_err,
+         usage=k3_usage)
+    assert k3_err <= 1e-5, k3
+    del stacks, conv
 
     # ---- train: the training path, launch counters around its first step --
     rng = np.random.default_rng(SIMI_SEED)
@@ -650,6 +674,15 @@ def main() -> int:
     emit("grad_parity", scene="160x120, 3000 gaussians", tol=1e-3, scaled_err=grad_err)
     assert max(e for blk in grad_err.values() for e in blk.values()) <= 1e-3, grad_err
 
+    # ---- kernelcost: K1/K2 cost split; K1-K3's tool counters from here ------
+    # (T1 and T2 launch none of K1-K3; step_profile ends the count)
+    rasterize_tiles.composite_tiles.launches = 0
+    rasterize_tiles.composite_tiles_bwd.launches = 0
+    blur.blur_cuda.launches = 0
+    cost = kernelcost.sweep(device=dev, reps=10)
+    k1_slope = cost["fits"]["k1_ms"]["slope_us_per_chunk"]
+    emit("kernelcost", **cost)
+
     # ---- t1_fetch: the chunk-fetch tool (T1), counters around its run -----
     roll.fetch_sum.launches = 0
     t1_runs = {v: roll.run(v, device=dev, reps=100) for v in roll.VARIANTS}
@@ -701,7 +734,8 @@ def main() -> int:
             t2[v] = {**t2_runs[v], "max_scaled_err": err,
                      "max_abs_err": float((k[:, :6] - p[:, :6]).abs().max()),
                      "saves_us_per_chunk": t2_runs["full"]["us_per_chunk"]
-                     - t2_runs[v]["us_per_chunk"]}
+                     - t2_runs[v]["us_per_chunk"],
+                     "usage": kernels.usage("microbench_fwdablate", ablate.VARIANTS.index(v))}
             del k, p
         t2_plain_ms = cuda_ms(lambda: ablate.chunk_walk_plain(*inputs, ablate.GX, "full"), 2)
     del inputs
@@ -710,16 +744,15 @@ def main() -> int:
     if sass is not None:
         sass = {ablate.VARIANTS[int(re.search(r"ILi(\d+)E", name).group(1))]: c
                 for name, c in sass.items() if "ablate_kernel" in name}
+    # T2 walks a chunk as K1 does: FULL's time per chunk beside K1's slope
+    # from kernelcost in this run
     emit("t2_ablate", tiles=ablate.GX * ablate.GY, chunks_per_tile=ablate.NCH,
          launches=t2_launches, tol=1e-3, variants=t2, full_plain_ms=t2_plain_ms,
-         sass=sass, **t2_work)
+         k1_slope_us_per_chunk=k1_slope,
+         full_over_k1_slope=t2["full"]["us_per_chunk"] / k1_slope, sass=sass, **t2_work)
     assert max(r["max_scaled_err"] for r in t2.values()) <= 1e-3, t2
 
-    # ---- kernelcost and step_profile: K1/K2 cost split, step stages -------
-    rasterize_tiles.composite_tiles.launches = 0
-    rasterize_tiles.composite_tiles_bwd.launches = 0
-    blur.blur_cuda.launches = 0
-    emit("kernelcost", **kernelcost.sweep(device=dev, reps=10))
+    # ---- step_profile: the train step's stages (counters read after it) ----
     emit("step_profile", **profile_step3.run(device=dev, reps=10))
     torch.cuda.synchronize()
     tool_launches = {"K1": rasterize_tiles.composite_tiles.launches,
@@ -728,7 +761,6 @@ def main() -> int:
 
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
-    k3_bound_by = "bytes" if k3_bytes / PEAK_BYTES >= k3_flops / PEAK_F32 else "operations"
     k1_mean, k1_plain_mean = float(np.mean(k1_ms)), float(np.mean(plain_ms))
     table = [
         {"name": "K1 tile_forward", "route": "cuda",
@@ -753,9 +785,12 @@ def main() -> int:
          "replaces": "gslivm_tpu/ops/blur_pallas.py:34",
          "launches": launches["K3"] + train_launches["K3"],
          "launches_serve": launches["K3"], "launches_train_step": train_launches["K3"],
-         "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": k3_bound_by, "library_ms": lib_ms},
+         "max_abs_err": k3_err, "ms": k3["serve"]["kernel_ms"],
+         "plain_ms": k3["serve"]["plain_ms"], "bound_ms": k3["serve"]["bound_ms"],
+         "bound_by": k3["serve"]["bound_by"], "library_ms": lib_ms,
+         "copy_ms": k3["serve"]["copy_ms"], "ms_train_stack": k3["train"]["kernel_ms"],
+         "bound_ms_train_stack": k3["train"]["bound_ms"], "redesigned": True,
+         "earlier_times": EARLIER_TIMES, **k3_usage},
         {"name": "T1 microbench_fetch", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/microbench_fetch.cu",
          "replaces": "tools/microbench_roll.py:42",
@@ -774,8 +809,8 @@ def main() -> int:
          "max_scaled_err": max(r["max_scaled_err"] for r in t2.values()),
          "ms": t2["full"]["ms"], "plain_ms": t2_plain_ms,
          "bound_ms": t2_work["bound_ms"], "bound_by": t2_work["bound_by"],
-         "library_ms": None,
-         "variants_ms": {v: r["ms"] for v, r in t2.items()}},
+         "library_ms": None, "redesigned": True, "earlier_times": EARLIER_TIMES,
+         "variants_ms": {v: r["ms"] for v, r in t2.items()}, **t2["full"]["usage"]},
     ]
     for row, key in zip(table, ("K1", "K2", "K3")):
         row["launches_tools"] = tool_launches[key]

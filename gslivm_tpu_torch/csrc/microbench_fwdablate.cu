@@ -6,19 +6,26 @@
 // own K1 (tile_forward.cu), so that the time each piece saves says what it
 // costs K1 on this card.
 //
-// What it computes. One CUDA block per 32x32-pixel tile; each of its 256
-// threads owns 4 pixels. The block walks its tile's instances
-// start[t] .. start[t] + cnt[t] of the row-major [L, 16] table in chunks of
-// 128, with tile_common.cuh's pair math and the rect test, and with no
-// 1e-4 stop and no done flags. Output [T, 8, 1024]: C0, C1, C2, D, A, T, T,
-// T per pixel. The variants (the outputs of the same-named JAX variants):
+// What it computes. One CUDA block per 32x32-pixel tile (a 2x2 supertile
+// of 16x16 tiles); each of its 256 threads owns 4 pixels. The block walks
+// its tile's instances start[t] .. start[t] + cnt[t] of the row-major
+// [L, 16] table in chunks of 128, with tile_common.cuh's pair math, and with
+// no 1e-4 stop and no done flags (so K1's skip of a chunk for a warp whose
+// pixels are all done has nothing to skip here). Output [T, 8, 1024] in
+// row-major pixel order: C0, C1, C2, D, A, T, T, T per pixel. The rect test
+// is K1's: once per warp and instance, on the origin of the warp's 16x16
+// tile, which equals the per-pixel test of the JAX tool when the rect
+// bounds are multiples of 16 (binning makes them so) or, as in the tool's
+// inputs, +-1e9 (the test then always passes: it is timed, it saves
+// nothing). The variants (the outputs of the same-named JAX variants):
 //   kFull      each pixel composites the instances in order, as K1 does;
 //   kNoExp     G = power in place of exp(power) (nothing is then accepted);
 //   kNoTrans   FULL's values, each instance read straight from global
 //              memory: no shared staging and no __syncthreads;
 //   kNoAccept  contrib = alpha > accept_thr, never true for the 1e30 the
 //              wrapper passes (an argument, so nvcc cannot fold it): w = 0
-//              and T is unchanged; the accept test is gone;
+//              and T is unchanged; the per-pixel accept test (power <= 0,
+//              alpha >= 1/255) is gone, the warp's rect test stays;
 //   kNoScan    no transmittance carried inside a chunk: each pair's T_prev
 //              = T_chunk_start (1 - alpha), and the chunk ends at the min of
 //              the contributors' T_next;
@@ -32,11 +39,16 @@
 // 67 TFLOP/s f32, while its 134 MB (instances read, rows written) take
 // 0.040 ms at 3.35 TB/s.
 //
-// What the design does about it. It keeps K1's shape, so that it measures
-// K1: per-pixel state in registers, the chunk staged in shared memory with
-// float4 loads and read back as a broadcast, one template instantiation per
-// variant so that each loses only its piece at compile time.
+// What the design does about it. It walks a chunk as K1 (tile_forward.cu)
+// does since its redesign, so that the time each piece saves says what it
+// costs K1 on this card: pixels in K1's warp-uniform 16x8 patches
+// (tile_common.cuh:patch_pixel<4>), the rect test once per warp before any
+// pair math, K1's launch bound of 4 blocks (32 warps) per SM, per-pixel
+// state in registers, the chunk staged in shared memory with float4 loads
+// and read back as a broadcast, and one template instantiation per variant
+// so that each loses only its piece at compile time.
 
+#include "kernel_usage.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -47,37 +59,27 @@ constexpr int kPPT = 4;      // pixels per thread
 constexpr int kSide = 32;    // tile side in pixels
 enum Variant { kFull = 0, kNoExp, kNoTrans, kNoAccept, kNoScan, kNoAccum };
 
-// eval_pair with G = power: the exp removed, the rest as in tile_common.cuh
-__device__ __forceinline__ Pair eval_pair_noexp(const Splat& s, float px, float py) {
-  Pair r;
-  r.dx = __fsub_rn(s.x, px);
-  r.dy = __fsub_rn(s.y, py);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(s.a, r.dx), r.dx),
-                               __fmul_rn(__fmul_rn(s.c, r.dy), r.dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                __fmul_rn(__fmul_rn(s.b, r.dx), r.dy));
-  r.G = power;
-  r.raw_alpha = __fmul_rn(s.o, r.G);
-  r.alpha = fminf(0.99f, r.raw_alpha);
-  r.accepted = power <= 0.f && r.alpha >= TILE_MIN_ALPHA && px >= s.x0 &&
-               px < s.x1 && py >= s.y0 && py < s.y1;
-  return r;
-}
-
 template <int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 ablate_kernel(const float* __restrict__ inst, const int* __restrict__ start,
               const int* __restrict__ nchunks, const int* __restrict__ count,
               float* __restrict__ out, int grid_x, float accept_thr) {
   __shared__ float4 batch[kChunk * kFeat / 4];
   const int t = blockIdx.x;
   const int npix = kSide * kSide;
-  float px[kPPT], py[kPPT], T[kPPT], C0[kPPT], C1[kPPT], C2[kPPT], D[kPPT], A[kPPT];
+  const int bx = (t % grid_x) * kSide;  // the tile's origin in the image
+  const int by = (t / grid_x) * kSide;
+  // pixel k of this thread, and the origin of the 16x16 tile holding it
+  float px[kPPT], py[kPPT], rx[kPPT], ry[kPPT];
+  float T[kPPT], C0[kPPT], C1[kPPT], C2[kPPT], D[kPPT], A[kPPT];
 #pragma unroll
   for (int k = 0; k < kPPT; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    px[k] = (float)((t % grid_x) * kSide + p % kSide);
-    py[k] = (float)((t / grid_x) * kSide + p / kSide);
+    int x, y, ox, oy;
+    patch_pixel<kPPT>(k, kSide, x, y, ox, oy);
+    px[k] = (float)(bx + x);
+    py[k] = (float)(by + y);
+    rx[k] = (float)(bx + ox);
+    ry[k] = (float)(by + oy);
     T[k] = 1.f;
     C0[k] = C1[k] = C2[k] = D[k] = A[k] = 0.f;
   }
@@ -101,10 +103,18 @@ ablate_kernel(const float* __restrict__ inst, const int* __restrict__ start,
     for (int j = 0; j < m; ++j) {
       const float* g = (V == kNoTrans ? rows : feats) + j * kFeat;
       const Splat s = load_splat(g);
+      bool in[kPPT];
+      bool any_in = false;
 #pragma unroll
       for (int k = 0; k < kPPT; ++k) {
-        const Pair pr = V == kNoExp ? eval_pair_noexp(s, px[k], py[k])
-                                    : eval_pair(s, px[k], py[k], 1);
+        in[k] = rect_holds(s, rx[k], ry[k]);  // warp-uniform
+        any_in = any_in || in[k];
+      }
+      if (!any_in) continue;
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        if (!in[k]) continue;
+        const Pair pr = eval_pair<V != kNoExp>(s, px[k], py[k]);
         const bool contrib = V == kNoAccept ? pr.alpha > accept_thr : pr.accepted;
         if (!contrib) continue;
         const float T_prev = V == kNoScan ? next_T(Tc[k], pr.alpha) : T[k];
@@ -136,7 +146,9 @@ ablate_kernel(const float* __restrict__ inst, const int* __restrict__ start,
   float* o = out + (size_t)t * 8 * npix;
 #pragma unroll
   for (int k = 0; k < kPPT; ++k) {
-    const int p = threadIdx.x + k * kThreads;
+    int x, y, ox, oy;
+    patch_pixel<kPPT>(k, kSide, x, y, ox, oy);
+    const int p = y * kSide + x;
     o[0 * npix + p] = C0[k];
     o[1 * npix + p] = C1[k];
     o[2 * npix + p] = C2[k];
@@ -177,4 +189,19 @@ extern "C" int microbench_fwdablate(const float* inst, const int* start,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Resource use of one variant's kernel, as the runtime reports it on the
+// current device (kernel_usage.cuh); 1 (cudaErrorInvalidValue) for an
+// unknown variant.
+extern "C" int microbench_fwdablate_usage(int variant, int* out) {
+  switch (variant) {
+    case kFull: return kernel_usage(ablate_kernel<kFull>, kThreads, 0, out);
+    case kNoExp: return kernel_usage(ablate_kernel<kNoExp>, kThreads, 0, out);
+    case kNoTrans: return kernel_usage(ablate_kernel<kNoTrans>, kThreads, 0, out);
+    case kNoAccept: return kernel_usage(ablate_kernel<kNoAccept>, kThreads, 0, out);
+    case kNoScan: return kernel_usage(ablate_kernel<kNoScan>, kThreads, 0, out);
+    case kNoAccum: return kernel_usage(ablate_kernel<kNoAccum>, kThreads, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -61,6 +61,7 @@
 // Shared memory: 8 KB of instances + 40 KB of warp slots (8 warps x 128
 // instances x 10 terms).
 
+#include "kernel_usage.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -222,7 +223,7 @@ tile_backward_kernel(const float* __restrict__ inst,
 #pragma unroll
         for (int k = 0; k < PPT; ++k) {
           if (!in[k] || done[k]) continue;
-          const Pair pr = eval_pair(s, px[k], py[k], 0);
+          const Pair pr = eval_pair(s, px[k], py[k]);
           if (!pr.accepted) continue;
           const float T_next = next_T(T[k], pr.alpha);
           if (T_next < TILE_MIN_T) {
@@ -325,7 +326,7 @@ int launch(const float* inst, const int* start, const int* cnt,
 template <int PPT, bool DG>
 int usage(int* out) {
   const int e = allow_smem<PPT, DG>();
-  return e ? e : kernel_usage(tile_backward_kernel<PPT, DG>, kSmemBytes, out);
+  return e ? e : kernel_usage(tile_backward_kernel<PPT, DG>, kThreads, kSmemBytes, out);
 }
 
 }  // namespace
@@ -371,7 +372,7 @@ extern "C" int tile_backward(const float* inst, const int* sorted_start,
 
 // Resource use of the kernel that a block of 256 ppt pixels launches with
 // depth_grad, as the runtime reports it on the current device
-// (tile_common.cuh:kernel_usage); 1 (cudaErrorInvalidValue) for a ppt
+// (kernel_usage.cuh); 1 (cudaErrorInvalidValue) for a ppt
 // outside 1..8.
 extern "C" int tile_backward_usage(int ppt, int depth_grad, int* out) {
   switch (ppt) {

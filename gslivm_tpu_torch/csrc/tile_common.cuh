@@ -1,7 +1,7 @@
 // Per-(instance, pixel) compositing math and the pixel layout shared by the
 // forward tile kernel K1 (tile_forward.cu) and the backward tile kernel K2
-// (tile_backward.cu); the K1 ablation T2 (microbench_fwdablate.cu) uses the
-// pair math.
+// (tile_backward.cu); the K1 ablation T2 (microbench_fwdablate.cu) uses
+// both.
 //
 // K2 replays K1's front-to-back compositing from K1's chunk-start
 // checkpoints, so both kernels must take the same accepted / contributing /
@@ -43,16 +43,17 @@ __device__ __forceinline__ Splat load_splat(const float* g) {
 // One instance at one pixel:
 //   power = -0.5 (a dx^2 + c dy^2) - b dx dy,  G = e^power,
 //   alpha = min(0.99, o G),
-//   accepted if power <= 0, alpha >= 1/255 and (rect_test) the pixel lies
-//   inside the splat's 16x16 tile rect. K1 and K2 pass rect_test 0 and test
-//   the rect once per warp first (rect_holds); T2 tests it per pixel.
+//   accepted if power <= 0 and alpha >= 1/255. The pixel must also lie
+//   inside the splat's 16x16 tile rect: K1, K2 and T2 test that once per
+//   warp before this (rect_holds). T2's noexp variant takes EXP = false,
+//   G = power.
 struct Pair {
   float dx, dy, G, raw_alpha, alpha;
   bool accepted;
 };
 
-__device__ __forceinline__ Pair eval_pair(const Splat& s, float px, float py,
-                                          int rect_test) {
+template <bool EXP = true>
+__device__ __forceinline__ Pair eval_pair(const Splat& s, float px, float py) {
   Pair r;
   r.dx = __fsub_rn(s.x, px);
   r.dy = __fsub_rn(s.y, py);
@@ -60,12 +61,10 @@ __device__ __forceinline__ Pair eval_pair(const Splat& s, float px, float py,
                                __fmul_rn(__fmul_rn(s.c, r.dy), r.dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(s.b, r.dx), r.dy));
-  r.G = __expf(power);
+  r.G = EXP ? __expf(power) : power;
   r.raw_alpha = __fmul_rn(s.o, r.G);
   r.alpha = fminf(0.99f, r.raw_alpha);
-  bool ok = power <= 0.f && r.alpha >= TILE_MIN_ALPHA;
-  if (rect_test) ok = ok && px >= s.x0 && px < s.x1 && py >= s.y0 && py < s.y1;
-  r.accepted = ok;
+  r.accepted = power <= 0.f && r.alpha >= TILE_MIN_ALPHA;
   return r;
 }
 
@@ -86,27 +85,6 @@ __device__ __forceinline__ float weight(float alpha, float T) {
 // tile at once.
 __device__ __forceinline__ bool rect_holds(const Splat& s, float tx, float ty) {
   return tx >= s.x0 && tx < s.x1 && ty >= s.y0 && ty < s.y1;
-}
-
-// Resource use of a tile kernel as the CUDA runtime reports it for the
-// current device, into out[5]: registers and local (stack and spill) bytes
-// per thread, static and dynamic shared bytes per block, and the blocks of
-// kThreads threads with dyn_smem dynamic shared bytes that one SM holds.
-// Returns a cudaError_t.
-template <typename Kernel>
-inline int kernel_usage(Kernel kernel, int dyn_smem, int* out) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, dyn_smem);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  out[3] = dyn_smem;
-  out[4] = blocks;
-  return 0;
 }
 
 // Whether the kernels take a pw x ph pixel block: 256..2048 pixels in

@@ -48,6 +48,7 @@
 // so the TPU kernel's cross-program DMA baton has no counterpart: each
 // block reads its own run.
 
+#include "kernel_usage.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -133,7 +134,7 @@ tile_forward_kernel(const float* __restrict__ inst,
 #pragma unroll
       for (int k = 0; k < PPT; ++k) {
         if (!in[k] || done[k]) continue;
-        const Pair pr = eval_pair(s, px[k], py[k], 0);
+        const Pair pr = eval_pair(s, px[k], py[k]);
         if (!pr.accepted) continue;
         const float T_next = next_T(T[k], pr.alpha);
         if (T_next < TILE_MIN_T) {
@@ -210,13 +211,13 @@ extern "C" int tile_forward(const float* inst, const int* sorted_start,
 }
 
 // Resource use of the kernel that a block of 256 ppt pixels launches, as the
-// runtime reports it on the current device (tile_common.cuh:kernel_usage);
+// runtime reports it on the current device (kernel_usage.cuh);
 // 1 (cudaErrorInvalidValue) for a ppt outside 1..8.
 extern "C" int tile_forward_usage(int ppt, int* out) {
   switch (ppt) {
 #define CASE(P) \
   case P:       \
-    return kernel_usage(tile_forward_kernel<P>, 0, out);
+    return kernel_usage(tile_forward_kernel<P>, kThreads, 0, out);
     CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
     default: return (int)cudaErrorInvalidValue;

@@ -44,8 +44,8 @@ _SIGNATURES = {
     # num_gaussians, num_tiles, grid_x, pw, ph, max_chunks, rect_test,
     # depth_grad, stream
     "tile_backward": ("tile_backward", [_P] * 7 + [_I] * 8 + [_P]),
-    # x, y, n, h, w, taps (host float*), k, stream
-    "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _P]),
+    # x, y, n, h, w, taps (host float*), k, vec, strip, stream
+    "blur": ("blur_many", [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P]),
     # inst, off, nch, out, num_tiles, rows, variant, stream
     "microbench_fetch": ("microbench_fetch", [_P] * 4 + [_I] * 3 + [_P]),
     # inst, start, nchunks, count, out, num_tiles, grid_x, variant,
@@ -54,9 +54,9 @@ _SIGNATURES = {
                              [_P] * 5 + [_I] * 3 + [ctypes.c_float, _P]),
 }
 
-# the tile kernels' libraries also export `<entry>_usage(<ints>, int out[5])`,
-# the resource use of one instantiation; the number of ints it takes
-_USAGE_ARGS = {"tile_forward": 1, "tile_backward": 2}
+# these libraries also export `<name>_usage(<ints>, int out[5])`, the
+# resource use of one instantiation; the number of ints it takes
+_USAGE_ARGS = {"tile_forward": 1, "tile_backward": 2, "blur": 2, "microbench_fwdablate": 1}
 USAGE_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
                 "blocks_per_sm")
 
@@ -142,13 +142,14 @@ def library(name: str):
 
 
 def usage(name: str, *instantiation: int) -> dict[str, int]:
-    """Resource use of one instantiation of tile kernel `name` (tile_forward:
-    pixels a thread; tile_backward: pixels a thread and depth_grad) as the
-    CUDA runtime reports it for the current device: registers and local
-    (stack and spill) bytes per thread, static and dynamic shared bytes per
-    block, and the blocks one SM holds at once."""
+    """Resource use of one instantiation of kernel `name` (tile_forward:
+    pixels a thread; tile_backward: pixels a thread and depth_grad; blur:
+    taps and float4; microbench_fwdablate: the variant's index) as the CUDA
+    runtime reports it for the current device: registers and local (stack
+    and spill) bytes per thread, static and dynamic shared bytes per block,
+    and the blocks one SM holds at once."""
     library(name)
-    fn = getattr(_DLLS[name], f"{_SIGNATURES[name][0]}_usage")
+    fn = getattr(_DLLS[name], f"{name}_usage")
     fn.argtypes = [_I] * _USAGE_ARGS[name] + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(USAGE_FIELDS))()

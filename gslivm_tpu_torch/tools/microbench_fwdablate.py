@@ -2,13 +2,15 @@
 tools/microbench_fwdablate.py; kernel `csrc/microbench_fwdablate.cu`).
 
 K1's chunk walk over fabricated runs (60 x 34 tiles of 32 x 32 pixels, 4
-uniform chunks of 128 instances per tile, the rect test on, no 1e-4 stop
-and no done flags), with one piece removed at a time:
+uniform chunks of 128 instances per tile, no 1e-4 stop and no done flags),
+as K1 walks it: pixels in K1's warp-uniform 16x8 patches, the rect test
+once per warp before any pair math (the tool's rects are +-1e9, so it
+always passes), K1's 4 blocks per SM. One piece is removed at a time:
 
   full      the walk as K1 does it
   noexp     G = power in place of exp(power)
   notrans   no shared staging: each instance read from global memory
-  noaccept  no accept test (contrib = alpha > 1e30, never true)
+  noaccept  no per-pixel accept test (contrib = alpha > 1e30, never true)
   noscan    no transmittance carried inside a chunk
   noaccum   only C0 += w, no colour, depth or alpha sums
 

@@ -100,6 +100,67 @@ def test_k3_matches_plain_version_and_vjp(cuda):
     assert float((dx.cpu() - dxc).abs().max()) <= 1e-5
 
 
+def _k3_case(rng, shape, k, device):
+    """Uniform(0, 1) images and taps that sum to 1 (k = 11: the SSIM
+    window), so that every output lies in [0, 1] like SSIM's."""
+    if k == 11:
+        taps = tuple(float(t) for t in losses.gaussian_1d())
+    else:
+        t = rng.uniform(0, 1, k)
+        taps = tuple(float(v) for v in (t / t.sum()).astype(np.float32))
+    x = torch.as_tensor(rng.uniform(0, 1, shape), dtype=torch.float32, device=device)
+    return x, taps
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 11, 15])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 21, 130), (9, 1080, 1920), (1, 1080, 1920)])
+def test_k3_matches_plain_version_at_path_and_ragged_shapes(cuda, shape, k):
+    """K3 (float4 or scalar instantiation, as the shape gives) against
+    blur_plain in both tap orientations and through blur_many's VJP: max abs
+    <= 1e-5 (f32 sums of k^2 taps in another order, FMA allowed)."""
+    rng = np.random.default_rng(k)
+    x, taps = _k3_case(rng, shape, k, cuda)
+    before = blur.blur_cuda.launches
+    for t in (taps, taps[::-1]):
+        y = blur.blur_cuda(x, t)
+        torch.cuda.synchronize()
+        assert float((y - blur.blur_plain(x, t)).abs().max()) <= 1e-5
+    assert blur.blur_cuda.launches == before + 2
+    xg = x.clone().requires_grad_(True)
+    g = torch.rand_like(x)
+    (dx,) = torch.autograd.grad(blur.blur_many(xg, taps), xg, g)
+    assert float((dx - blur.blur_plain(g, taps[::-1])).abs().max()) <= 1e-5
+
+
+def test_k3_takes_the_scalar_instantiation_for_a_misaligned_view(cuda):
+    """A contiguous view 4 bytes into its storage cannot take float4 rows:
+    the wrapper picks the scalar instantiation from the pointer, launches
+    once and matches blur_plain."""
+    rng = np.random.default_rng(3)
+    base = torch.as_tensor(rng.uniform(0, 1, 1 + 2 * 64 * 256), dtype=torch.float32,
+                           device=cuda)
+    x = base[1:].view(2, 64, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    assert not blur.float4_rows(256, x.data_ptr(), 0)
+    taps = losses.gaussian_1d()
+    before = blur.blur_cuda.launches
+    y = blur.blur_many(x, taps)
+    torch.cuda.synchronize()
+    assert blur.blur_cuda.launches == before + 1
+    assert float((y - blur.blur_plain(x, taps)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("k", [1, 4, 11, 15])
+@pytest.mark.parametrize("vec", [1, 0])
+def test_k3_reports_its_resources(cuda, k, vec):
+    """The runtime's report of one K3 instantiation: its 4 staged rows of
+    528 floats, no dynamic shared memory, registers within the 255 a thread
+    can have, and at least 4 blocks of 128 threads per SM."""
+    u = kernels.usage("blur", k, vec)
+    assert u["static_smem"] == 4 * 528 * 4 and u["dynamic_smem"] == 0, u
+    assert 0 < u["registers"] <= 255 and u["blocks_per_sm"] >= 4, u
+
+
 def test_tiles_on_card_matches_naive_with_grads(cuda):
     rng = np.random.default_rng(2)
     cam = make_camera(np.eye(3), np.zeros(3), 64, 48, fovx=1.0, fovy=0.8, device=cuda)
@@ -402,3 +463,12 @@ def test_tile_kernels_report_their_resources(cuda):
         k2 = kernels.usage("tile_backward", 4, depth_grad)
         assert k2["blocks_per_sm"] >= 3 and k2["dynamic_smem"] == 48 * 1024, k2
         assert 0 < k2["registers"] <= 80, k2
+
+
+@pytest.mark.parametrize("variant", microbench_fwdablate.VARIANTS)
+def test_t2_reports_k1s_residency(cuda, variant):
+    """Each T2 variant keeps K1's launch bound: 4 blocks of 256 threads per
+    SM, so at most 64 registers a thread, and at most K1's 8 KB shared batch."""
+    u = kernels.usage("microbench_fwdablate", microbench_fwdablate.VARIANTS.index(variant))
+    assert u["blocks_per_sm"] >= 4 and 0 < u["registers"] <= 64, u
+    assert u["static_smem"] <= 128 * 16 * 4 and u["dynamic_smem"] == 0, u

@@ -121,3 +121,25 @@ def test_library_name_follows_the_included_headers(monkeypatch, tmp_path):
         f.write("\n// edited\n")
     for name in kernels.SOURCES:
         assert (kernels.library_path(name) != before[name]) == (name in users), name
+
+
+def test_library_name_follows_the_usage_header(monkeypatch, tmp_path):
+    """The runtime's resource report lives in one header; editing it must
+    rebuild every library that exports a `<name>_usage` entry, and only
+    those."""
+    import shutil
+
+    from gslivm_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {n: kernels.library_path(n) for n in kernels.SOURCES}
+    users = {n for n in kernels.SOURCES
+             if "kernel_usage.cuh" in kernels._local_headers((csrc / f"{n}.cu").read_bytes())}
+    assert users == set(kernels._USAGE_ARGS) == {"tile_forward", "tile_backward", "blur",
+                                                  "microbench_fwdablate"}
+    with open(csrc / "kernel_usage.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name in kernels.SOURCES:
+        assert (kernels.library_path(name) != before[name]) == (name in users), name
