@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card
-and hold its hand-written CUDA kernels against their plain PyTorch versions.
+"""Drive the PyTorch port's serving, training, tools and mapping paths on
+one NVIDIA card and hold its hand-written CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -62,10 +63,36 @@ where the toolkit has cuobjdump) and step_profile (the overdraw statistics
 and the stage times of the three-camera train step at the JAX tool's
 budgets).
 
+The mapping path (`gslivm_tpu_torch/pipeline.py`): 50 synthetic frames at
+640x512 with 30,000 points each (`synthetic.make_sequence`, the shape of
+BASELINE.json configs[1]), GP grid 0.1, 500 bootstrap points, every other
+setting at its default. map_parity ingests the first 5 frames with a CPU
+mapper and a card mapper of the port: active counts within 0.5%, equal
+registries except voxels with a GP decision within 1e-5 of its threshold
+(counted), and gp_forward on the batches of a third GpMap fed the same
+frames, on the CPU and on the card, within 1e-3 of scale (the JAX bench's
+kernel gate). map runs the
+live loop on the card: add_frame, then 10 train_iterations per frame
+through K1, K2 and K3 (the counters set to 0 just before it and read just
+after; the quality probes are not counted); it reports the map's growth
+with Adam's rows, budget refits and escalations, ingest time per frame by
+stage, train_iter_ms by CUDA events, one profiled iteration, each
+keyframe's PSNR when staged and every keyframe's PSNR/SSIM at the end,
+then a forced prune at the 5th percentile of opacity and 20 more steps,
+and last holds K1 (with checkpoints), K2 and K3 against their plain
+versions at the loop's own shapes (kernel_parity: the views of one
+train_iteration at the final capacity and budgets, 640x512, K3 on the
+[9, 512, 640] training SSIM stack, its VJP and the [6, 512, 640] stack of
+ssim_ref_stats), with the gates of k1_parity, k2_parity and k3_parity.
+It asserts finite losses, a growth while Adam's moments are live, Adam's
+rows equal to the capacity after every growth and the prune, keyframe 0
+up >= 3 dB and the keyframe mean at or above its staged mean.
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
-launches in kernelcost and step_profile; K1, K2, K3 and T2 carry their
+launches in kernelcost and step_profile, and `launches_map`, their
+launches in the map loop; K1, K2, K3 and T2 carry their
 registers and blocks per SM and say where their times before the redesign
 stand, which this script does not measure), and last {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero; without CUDA the script
@@ -125,6 +152,17 @@ SIMI_SEED = 1
 # where the times of the redesigned kernels (K1, K2, K3, T2) before their
 # redesign stand; this script measures only the kernels in the checkout
 EARLIER_TIMES = "PERF.md section 6"
+# the mapping configuration: BASELINE.json configs[1]'s shape (50 keyframes,
+# ~200k gaussians, 640x512) on the repo's synthetic scene, at
+# examples/offline_fit.py's GP grid and tools/quality_bench.py's bootstrap
+MAP_FRAMES, MAP_W, MAP_H, MAP_POINTS = 50, 640, 512, 30_000
+MAP_GRID, MAP_BOOTSTRAP = 0.1, 500
+MAP_ITERS = 10          # train iterations per frame (ConcurrentMapper's default)
+MAP_PARITY_FRAMES = 5
+MAP_AFTER_PRUNE = 20    # steps after the forced prune
+# the JAX package's ingest of this configuration on a CPU (all 50 frames,
+# naive backend, no training): the gaussian count the port should reach
+JAX_CPU_GAUSSIANS = 179_672
 
 
 def emit(phase: str, **fields):
@@ -238,6 +276,347 @@ def make_map():
         "opacity": np.log(opac / (1.0 - opac))[:, None].astype(np.float32),
         "n_active": np.int32(n),
     }
+
+
+def frame_to(frame, dev):
+    """A pipeline Frame with its camera and projection tensors on dev."""
+    import dataclasses
+
+    cam = dataclasses.replace(frame.camera, **{
+        f.name: getattr(frame.camera, f.name).to(dev)
+        for f in dataclasses.fields(frame.camera) if f.name not in ("width", "height")})
+    return frame._replace(camera=cam, cam_projection=type(frame.cam_projection)(
+        *(t.to(dev) for t in frame.cam_projection)))
+
+
+def nan_scaled_err(a, b) -> float:
+    """scaled_err over the entries where b is not NaN; inf if the NaNs differ."""
+    import torch
+
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return float("inf")
+    ok = ~torch.isnan(b)
+    return scaled_err(a[ok], b[ok]) if bool(ok.any()) else 0.0
+
+
+def map_parity(frames_cpu, frames_gpu, cfg, dev):
+    """The first frames of the mapping configuration ingested by a CPU
+    mapper and a card mapper of the port, with a third GpMap on the CPU fed
+    the same frames as the mappers feed theirs: its batches go through
+    gp_forward on the CPU and on the card. Returns the phase's fields;
+    raises if a count or the GP disagrees beyond its gate, or if a voxel is
+    in one registry only without a GP decision (var_mean against the reopen
+    gate or the [0, 1] error bounds) within 1e-5 of its threshold."""
+    import torch
+
+    from gslivm_tpu_torch import pipeline
+    from gslivm_tpu_torch.frontend import gpmap
+    from gslivm_tpu_torch.ops import gp3d
+
+    mappers = {d: pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=d)
+               for d in ("cpu", dev)}
+    t0 = time.perf_counter()
+    for fc, fg in zip(frames_cpu, frames_gpu):
+        sc, sg = mappers["cpu"].add_frame(fc), mappers[dev].add_frame(fg)
+    seconds = time.perf_counter() - t0
+    cpu, gpu = mappers["cpu"], mappers[dev]
+
+    # the GP on the same batches, on the CPU and on the card
+    gmap, recs = gpmap.GpMap(cfg.gp, device="cpu"), []
+    gp_err, mask_flips = 0.0, 0
+    for fc in frames_cpu:
+        div = gmap.divide_points(fc.points_world)
+        rc = gp3d.gp_forward(div.batch, cfg.gp)
+        rg = gp3d.gp_forward(gp3d.GpBatch(*(t.to(dev) for t in div.batch)), cfg.gp)
+        for f in gp3d.GpResult._fields:
+            a, b = getattr(rg, f).cpu(), getattr(rc, f)
+            if b.dtype == torch.bool:
+                mask_flips += int((a != b).sum())
+            else:
+                gp_err = max(gp_err, nan_scaled_err(a, b))
+        gmap.update_variance(div.hashes, rc.reopen.numpy(), rc.update_variance.numpy())
+        recs.append((div.hashes, div.batch.mask, rc.var_mean, rg.var_mean.cpu()))
+    # a voxel in one registry only: its nearest GP decision to a threshold
+    only = set(cpu.registry._ranges) ^ set(gpu.registry._ranges)
+    margins = dict.fromkeys(only, 1.0)
+    if only:
+        thr = cfg.gp.max_var_mean
+        for hashes, live, *var_means in recs:
+            for vm in var_means:
+                vm = vm.double()[live]
+                dist = torch.stack([(vm - thr).abs(), vm.abs(), (vm - 1).abs()]).amin(0)
+                for h, d in zip(hashes[live.numpy()], dist.tolist()):
+                    if int(h) in only:
+                        margins[int(h)] = min(margins[int(h)], d)
+    near = {h for h in only if margins[h] <= 1e-5}
+    active = (sc["active"], sg["active"])
+    out = {"frames": len(frames_cpu), "active_cpu": active[0], "active_card": active[1],
+           "active_rel_diff": abs(active[0] - active[1]) / active[0],
+           "registry_cpu": len(cpu.registry), "registry_card": len(gpu.registry),
+           "registry_only_one_side": len(only), "of_them_within_1e-5_of_a_threshold": len(near),
+           "gp_batches": len(recs), "gp_max_scaled_err": gp_err, "gp_tol": 1e-3,
+           "gp_mask_flips": mask_flips, "stats_cpu": sc, "stats_card": sg,
+           "ingest_seconds_both": seconds}
+    assert out["active_rel_diff"] <= 5e-3, out
+    assert gp_err <= 1e-3, out
+    assert only == near, (sorted(only - near)[:10], out)
+    return out
+
+
+def map_kernel_parity(mapper, dev):
+    """K1, K2 and K3 against their plain versions at the map loop's own
+    shapes: the views of one train_iteration drawn by the mapper's sampler,
+    binned at its current capacity and refitted budgets, the cotangents of
+    each view's image loss (L1 + SSIM against the staged GT statistics).
+    Gates as k1_parity and k2_parity (scaled 1e-3, flips <= 0.1%) and
+    k3_parity (max abs 1e-5) for the training SSIM stack, its VJP, and the
+    staging stack of ssim_ref_stats. Returns the fields; raises on a gate."""
+    import torch
+
+    from gslivm_tpu_torch.models import training
+    from gslivm_tpu_torch.ops import blur, losses, rasterize_reference
+    from gslivm_tpu_torch.ops import rasterize_tiles as rt
+
+    p, st = mapper.params, mapper.settings
+    curr, hist = mapper._sample_cameras()
+    views = curr + [i for pair in hist for i in pair]
+    lam, dg = training.GsOptimParams().lambda_dssim, st.depth_grad
+    taps = losses.gaussian_1d()
+    k1 = {"rows": 0.0, "ncontrib": 0, "neff": 0, "ckpt": 0.0, "flags": 0, "pixels": 0,
+          "tiles": 0, "ckpt_values": 0}
+    k2, param_err, k3, shapes = 0.0, {}, {}, []
+    for i in views:
+        cam, gt = mapper.cameras[i], mapper._gt_device[i]
+        w, h = cam.width, cam.height
+        pre = rasterize_reference.preprocess(
+            p.xyz, p.get_scaling(), p.get_rotation(), p.get_opacity()[:, 0],
+            p.get_features(), cam, active_mask=p.active_mask())
+        table, binned, cfg = rt.bin_tiles(
+            pre, w, h, max_instances=st.max_instances,
+            max_chunks_per_tile=st.max_chunks_per_tile, capacity_slack=st.capacity_slack,
+            block_x=st.block_x, block_y=st.block_y, contrib_stats=False)
+        with torch.no_grad():
+            inst = table.detach().t()[binned.gid_sorted.long()].contiguous()
+            kargs = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+            tiles, ckpt = rt.composite_tiles(*kargs, save_ckpt=True)
+            ptiles, pckpt = rt.composite_tiles_plain(*kargs, save_ckpt=True)
+            for row in range(6):
+                scale = max(float(ptiles[:, row].abs().max()), 1.0)
+                k1["rows"] = max(k1["rows"],
+                                 float((tiles[:, row] - ptiles[:, row]).abs().max()) / scale)
+            k1["ncontrib"] += int((tiles[:, 6] != ptiles[:, 6]).sum())
+            k1["neff"] += int((tiles[:, 7, 0] != ptiles[:, 7, 0]).sum())
+            neff = torch.maximum(tiles[:, 7, 0], ptiles[:, 7, 0]).long()
+            walked = torch.arange(cfg.max_chunks, device=dev)[None, :] < neff[:, None]
+            if bool(walked.any()):
+                k1["ckpt"] = max(k1["ckpt"],
+                                 float((ckpt.abs() - pckpt.abs())[walked].abs().max()))
+            k1["flags"] += int(((ckpt < 0) != (pckpt < 0))[walked].sum())
+            k1["pixels"] += cfg.num_tiles * cfg.npix
+            k1["tiles"] += cfg.num_tiles
+            k1["ckpt_values"] += int(walked.sum()) * cfg.npix
+            del ptiles, pckpt
+        tiles_g = tiles.clone().requires_grad_(True)
+        img = rt.tiles_to_image(tiles_g, cfg)[:, :h, :w]
+        color = img[0:3] + img[5][None] * mapper._bg[:, None, None]
+        ref_stats = mapper._gt_stats[i]
+        loss = (1.0 - lam) * losses.l1_loss(color, gt) + lam * (
+            1.0 - losses.ssim(color, gt, ref_stats=ref_stats))
+        (g_tiles,) = torch.autograd.grad(loss, tiles_g)
+        bwd_args = (inst, binned.sorted_start, binned.cnt_allowed, g_tiles.contiguous(),
+                    tiles, ckpt, cfg)
+        n = table.shape[1]
+        with torch.no_grad():
+            d_k = rt.composite_tiles_bwd(*bwd_args, n, dg)
+            d_p = rt.scatter_instance_grads(rt.composite_tiles_bwd_plain(*bwd_args, dg), n, dg)
+            k2 = max(k2, max(scaled_err(d_k[c], d_p[c]) for c in range(10)))
+        leaves = {"xyz": p.xyz, "scaling": p.scaling, "rotation": p.rotation,
+                  "opacity": p.opacity, "features_dc": p.features_dc}
+        gk = torch.autograd.grad(table, list(leaves.values()), d_k, retain_graph=True)
+        gp = torch.autograd.grad(table, list(leaves.values()), d_p)
+        for name, a, b in zip(leaves, gk, gp):
+            param_err[name] = max(param_err.get(name, 0.0), scaled_err(a, b))
+        del tiles, ckpt, d_k, d_p, table, pre, inst
+        # K3 on the stacks the step and the staging blur: ssim against the
+        # cached GT statistics blurs [a, a^2, ab] (9 slices, its VJP the
+        # reversed taps), ssim_ref_stats blurs [b, b^2] (6 slices)
+        a, b = color.detach(), gt
+        stacks = {"train": torch.cat([a, a * a, a * b]).contiguous(),
+                  "ref_stats": torch.cat([b, b * b]).contiguous()}
+        with torch.no_grad():
+            for key, x in stacks.items():
+                for orient, t in (("taps", taps), ("reversed", taps[::-1])):
+                    e = float((blur.blur_cuda(x, t) - blur.blur_plain(x, t)).abs().max())
+                    k3[f"{key}_{orient}"] = max(k3.get(f"{key}_{orient}", 0.0), e)
+        x = stacks["train"].clone().requires_grad_(True)
+        g = torch.rand_like(x)
+        (vjp,) = torch.autograd.grad(blur.blur_many(x, taps), x, g)
+        e = float((vjp - blur.blur_plain(g, taps[::-1])).abs().max())
+        k3["train_vjp"] = max(k3.get("train_vjp", 0.0), e)
+        shapes.append({"view": i, "width": w, "height": h, "tiles": cfg.num_tiles,
+                       "max_chunks": cfg.max_chunks,
+                       "k3_stacks": {k: list(v.shape) for k, v in stacks.items()}})
+        del stacks, x, g, vjp
+    out = {"views": shapes, "capacity": p.capacity, "max_instances": st.max_instances,
+           "max_chunks_per_tile": st.max_chunks_per_tile,
+           "k1_max_scaled_err": k1["rows"], "k1_ncontrib_mismatch_pixels": k1["ncontrib"],
+           "pixels": k1["pixels"], "k1_neff_mismatch_tiles": k1["neff"], "tiles": k1["tiles"],
+           "ckpt_max_abs_err": k1["ckpt"], "ckpt_flag_flips": k1["flags"],
+           "ckpt_walked_values": k1["ckpt_values"], "k2_max_scaled_err": k2,
+           "k2_param_scaled_err": param_err, "k1_k2_tol": 1e-3,
+           "k3_max_abs_err": k3, "k3_tol": 1e-5}
+    assert views and all(v["width"] == MAP_W and v["height"] == MAP_H for v in shapes), out
+    assert k1["rows"] <= 1e-3 and k1["ckpt"] <= 1e-3, out
+    assert k1["ncontrib"] <= 1e-3 * k1["pixels"] and k1["neff"] <= 1e-3 * k1["tiles"], out
+    assert k1["flags"] <= 1e-3 * k1["ckpt_values"], out
+    assert k2 <= 1e-3 and max(param_err.values()) <= 1e-3, out
+    assert max(k3.values()) <= 1e-5, out
+    return out
+
+
+def map_loop(frames, cfg, dev, profiled, counters):
+    """The live mapping loop on the card: add_frame, then MAP_ITERS
+    train_iterations per frame, over every frame; then a forced prune and
+    MAP_AFTER_PRUNE more steps. `counters` are the launch-counted kernel
+    wrappers; they count the loop (ingest and training) and nothing of the
+    quality probes. Returns (phase fields, launches by kernel)."""
+    import torch
+
+    from gslivm_tpu_torch import pipeline
+    from gslivm_tpu_torch.ops import losses
+
+    mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
+
+    def uncounted(fn):
+        saved = [c.launches for c in counters.values()]
+        try:
+            return fn()
+        finally:
+            for c, n in zip(counters.values(), saved):
+                c.launches = n
+
+    def keyframe_scores(i):
+        out = mapper.render_keyframe(i)
+        gt = mapper._gt_device[i]
+        return torch.stack([losses.psnr(out.color, gt), losses.ssim(out.color, gt)])
+
+    def adam_rows():
+        """(every moment has `capacity` rows, any moment is non-zero)"""
+        moments = [mapper.optimizer.state[p][k] for g in mapper.optimizer.param_groups
+                   for p in g["params"] if p in mapper.optimizer.state
+                   for k in ("exp_avg", "exp_avg_sq")]
+        return (all(m.shape[0] == mapper.params.capacity for m in moments),
+                any(bool(m.any()) for m in moments))
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    capacity, growths, ingest, staged, losses_, events = [mapper.params.capacity], [], [], [], [], []
+    train_launches = dict.fromkeys(counters, 0)
+    for fr in frames:
+        kf = len(mapper.cameras)
+        t0 = time.perf_counter()
+        stats = mapper.add_frame(fr)
+        torch.cuda.synchronize()
+        ingest.append({"total": time.perf_counter() - t0, **mapper.ingest_seconds})
+        if mapper.params.capacity != capacity[-1]:
+            rows_ok, live = adam_rows()
+            growths.append({"frame": len(ingest) - 1, "from": capacity[-1],
+                            "to": mapper.params.capacity, "adam_rows_equal_capacity": rows_ok,
+                            "adam_moments_nonzero": live})
+            capacity.append(mapper.params.capacity)
+        if len(mapper.cameras) > kf:  # staged: its score before training on it
+            staged.append(uncounted(lambda: keyframe_scores(kf)))
+        before = {k: c.launches for k, c in counters.items()}
+        frame_losses = []
+        for _ in range(MAP_ITERS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            m = mapper.train_iteration()
+            e1.record()
+            if m is not None:
+                events.append((e0, e1))
+                frame_losses.append(m.loss)
+        for k, c in counters.items():
+            train_launches[k] += c.launches - before[k]
+        if frame_losses:  # one read per frame
+            losses_.append(torch.stack(frame_losses).cpu())
+    torch.cuda.synchronize()
+    loop_seconds = time.perf_counter() - t_phase
+    launches = {k: c.launches for k, c in counters.items()}
+    iter_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    all_losses = torch.cat(losses_).numpy()
+    assert np.isfinite(all_losses).all(), all_losses
+    prof = uncounted(lambda: profiled(mapper.train_iteration))
+
+    final = uncounted(lambda: torch.stack([keyframe_scores(i) for i in range(len(mapper.cameras))]))
+    final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
+    gaussians, voxels = int(mapper.params.n_active), len(mapper.registry)
+
+    # a forced prune at the 5th percentile of opacity: compact_opt_state on
+    # live moments, then training goes on
+    with torch.no_grad():
+        cut = float(mapper.params.get_opacity()[:gaussians, 0].quantile(0.05))
+    moments_live = adam_rows()[1]
+    dropped = uncounted(lambda: mapper.prune_map(min_opacity=cut))
+    rows_after_prune = adam_rows()[0]
+    after = uncounted(lambda: torch.stack([mapper.train_iteration().loss
+                                           for _ in range(MAP_AFTER_PRUNE)]).cpu().numpy())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # before the plain versions' buffers
+    # the loop's kernels against their plain versions at its own shapes,
+    # capacity and budgets
+    kernel_parity = uncounted(lambda: map_kernel_parity(mapper, dev))
+    stage = {k: [f[k] * 1e3 for f in ingest] for k in ingest[0]}
+    out = {
+        "config": {"frames": len(frames), "width": MAP_W, "height": MAP_H,
+                   "points_per_frame": MAP_POINTS, "grid": MAP_GRID,
+                   "bootstrap_points": MAP_BOOTSTRAP, "iters_per_frame": MAP_ITERS},
+        "gaussians": gaussians, "gaussians_after_last_ingest": stats["active"],
+        "jax_cpu_gaussians": JAX_CPU_GAUSSIANS,
+        "rel_diff_to_jax_cpu": stats["active"] / JAX_CPU_GAUSSIANS - 1.0,
+        "keyframes": len(mapper.cameras), "registry_voxels": voxels,
+        "registry_voxels_after_prune": len(mapper.registry),
+        "loss_anchors": len(mapper.loss_anchors), "last_stats": stats,
+        "capacity_history": capacity, "growths": growths,
+        "budget_refits": mapper.budget_refits, "escalations": mapper.overflow_escalations,
+        "last_overflow": mapper.last_overflow,
+        "settings": {"max_instances": mapper.settings.max_instances,
+                     "max_chunks_per_tile": mapper.settings.max_chunks_per_tile},
+        "train_iterations": len(iter_ms),
+        "ingest_ms_median": {k: float(np.median(v)) for k, v in stage.items()},
+        "ingest_ms_max": {k: float(np.max(v)) for k, v in stage.items()},
+        "train_iter_ms_median": float(np.median(iter_ms)),
+        "train_iter_ms_p90": float(np.percentile(iter_ms, 90)),
+        "train_iter_ms_mean": float(iter_ms.mean()),
+        "profiled_iteration": {k: v for k, v in prof.items() if k != "top"},
+        "profiled_top": prof["top"][:6],
+        "launches": launches, "launches_train": train_launches,
+        "launches_per_iteration": {k: v / len(iter_ms) for k, v in train_launches.items()},
+        "loss_first_last": [float(all_losses[0]), float(all_losses[-1])],
+        "psnr_staged": staged[:, 0].tolist(), "psnr_final": final[:, 0].tolist(),
+        "ssim_final": final[:, 1].tolist(),
+        "kf0_psnr_staged_final": [float(staged[0, 0]), float(final[0, 0])],
+        "mean_psnr_staged_final": [float(staged[:, 0].mean()), float(final[:, 0].mean())],
+        "mean_ssim_staged_final": [float(staged[:, 1].mean()), float(final[:, 1].mean())],
+        "prune_min_opacity": cut, "pruned": dropped, "adam_moments_live_at_prune": moments_live,
+        "adam_rows_equal_capacity_after_prune": rows_after_prune,
+        "losses_after_prune_first_last": [float(after[0]), float(after[-1])],
+        "kernel_parity": kernel_parity,
+        "memory_at_start_gb": mem0 / 1e9,
+        "peak_memory_gb": peak_gb,
+        "loop_seconds": loop_seconds,
+    }
+    assert len(mapper.cameras) == len(frames), out
+    assert any(g["adam_moments_nonzero"] for g in growths), out
+    assert all(g["adam_rows_equal_capacity"] for g in growths) and rows_after_prune, out
+    assert moments_live and dropped > 0 and np.isfinite(after).all(), out
+    assert final[0, 0] >= staged[0, 0] + 3.0, out["kf0_psnr_staged_final"]
+    assert final[:, 0].mean() >= staged[:, 0].mean(), out["mean_psnr_staged_final"]
+    assert all(v > 0 for v in launches.values()), launches
+    return out, launches
 
 
 def main() -> int:
@@ -759,6 +1138,25 @@ def main() -> int:
                      "K2": rasterize_tiles.composite_tiles_bwd.launches,
                      "K3": blur.blur_cuda.launches}
 
+    # ---- map_parity, map: the incremental mapper ---------------------------
+    from gslivm_tpu_torch.config import Config, GpParams
+    from gslivm_tpu_torch.frontend import synthetic
+
+    t0 = time.perf_counter()
+    map_cfg = Config(gp=GpParams(grid=MAP_GRID))
+    frames_cpu = synthetic.make_sequence(n_frames=MAP_FRAMES, width=MAP_W, height=MAP_H,
+                                         points_per_frame=MAP_POINTS, device="cpu")
+    frames = [frame_to(f, dev) for f in frames_cpu]
+    scene_s = time.perf_counter() - t0
+    emit("map_parity", scene_seconds=scene_s, **map_parity(
+        frames_cpu[:MAP_PARITY_FRAMES], frames[:MAP_PARITY_FRAMES], map_cfg, dev))
+    del frames_cpu
+    counters = {"K1": rasterize_tiles.composite_tiles, "K2": rasterize_tiles.composite_tiles_bwd,
+                "K3": blur.blur_cuda}
+    map_fields, map_launches = map_loop(frames, map_cfg, dev, profiled, counters)
+    emit("map", **map_fields)
+    del frames
+
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
     k1_mean, k1_plain_mean = float(np.mean(k1_ms)), float(np.mean(plain_ms))
@@ -766,8 +1164,9 @@ def main() -> int:
         {"name": "K1 tile_forward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_forward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:298",
-         "launches": launches["K1"] + train_launches["K1"],
+         "launches": launches["K1"] + train_launches["K1"] + map_launches["K1"],
          "launches_serve": launches["K1"], "launches_train_step": train_launches["K1"],
+         "launches_map": map_launches["K1"],
          "max_abs_err": k1_err, "ms": k1_mean, "ckpt_ms": ckpt_ms,
          "plain_ms": k1_plain_mean,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None,
@@ -776,15 +1175,18 @@ def main() -> int:
         {"name": "K2 tile_backward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_backward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:455",
-         "launches": train_launches["K2"], "max_abs_err": k2_err,
+         "launches": train_launches["K2"] + map_launches["K2"],
+         "launches_train_step": train_launches["K2"], "launches_map": map_launches["K2"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None,
          "bound_ms_walked": k2_bound_walked, "run_spread": k2_spread,
          "redesigned": True, "earlier_times": EARLIER_TIMES, **tile_usage["K2"]},
         {"name": "K3 blur", "route": "cuda", "source": "gslivm_tpu_torch/csrc/blur.cu",
          "replaces": "gslivm_tpu/ops/blur_pallas.py:34",
-         "launches": launches["K3"] + train_launches["K3"],
+         "launches": launches["K3"] + train_launches["K3"] + map_launches["K3"],
          "launches_serve": launches["K3"], "launches_train_step": train_launches["K3"],
+         "launches_map": map_launches["K3"],
          "max_abs_err": k3_err, "ms": k3["serve"]["kernel_ms"],
          "plain_ms": k3["serve"]["plain_ms"], "bound_ms": k3["serve"]["bound_ms"],
          "bound_by": k3["serve"]["bound_by"], "library_ms": lib_ms,
@@ -794,7 +1196,7 @@ def main() -> int:
         {"name": "T1 microbench_fetch", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/microbench_fetch.cu",
          "replaces": "tools/microbench_roll.py:42",
-         "launches": t1_launches, "launches_tools": t1_launches,
+         "launches": t1_launches, "launches_tools": t1_launches, "launches_map": 0,
          "max_abs_err": max(r["max_abs_err"] for r in t1.values()),
          "max_rel_err": max(r["max_rel_err"] for r in t1.values()),
          "ms": t1["A"]["ms"], "plain_ms": t1["A"]["plain_ms"],
@@ -804,7 +1206,7 @@ def main() -> int:
         {"name": "T2 microbench_fwdablate", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/microbench_fwdablate.cu",
          "replaces": "tools/microbench_fwdablate.py:51",
-         "launches": t2_launches, "launches_tools": t2_launches,
+         "launches": t2_launches, "launches_tools": t2_launches, "launches_map": 0,
          "max_abs_err": max(r["max_abs_err"] for r in t2.values()),
          "max_scaled_err": max(r["max_scaled_err"] for r in t2.values()),
          "ms": t2["full"]["ms"], "plain_ms": t2_plain_ms,

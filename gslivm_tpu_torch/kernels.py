@@ -24,6 +24,7 @@ import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -62,6 +63,7 @@ USAGE_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem",
 
 _FNS: dict = {}  # kernel name -> its loaded C entry point
 _DLLS: dict = {}  # kernel name -> its loaded library
+_LOAD_LOCK = threading.Lock()  # one thread builds and loads a library
 
 
 def nvcc_path() -> str:
@@ -129,15 +131,18 @@ def build(names=SOURCES) -> dict[str, str]:
 
 
 def library(name: str):
-    """The loaded C entry point of kernel `name`, built first if needed."""
+    """The loaded C entry point of kernel `name`, built first if needed.
+    Safe to call from several threads: one of them builds and loads."""
     if name not in _FNS:
-        build([name])
-        fn_name, argtypes = _SIGNATURES[name]
-        _DLLS[name] = ctypes.CDLL(str(library_path(name)))
-        fn = getattr(_DLLS[name], fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        with _LOAD_LOCK:
+            if name not in _FNS:
+                build([name])
+                fn_name, argtypes = _SIGNATURES[name]
+                _DLLS[name] = ctypes.CDLL(str(library_path(name)))
+                fn = getattr(_DLLS[name], fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FNS[name] = fn
     return _FNS[name]
 
 

@@ -20,9 +20,10 @@ Behavioral spec: reference training thread `optimize_vis`
 
 On the card, the default "auto" backend renders through the tile kernels:
 K1 forward with checkpoints, the backward kernel K2, then autograd through
-preprocess. The parameters are updated in place by `torch.optim.Adam`.
-Optimizer growth and compaction (`grow_opt_state`, `compact_opt_state`)
-come with map growth and pruning.
+preprocess. The parameters are updated in place by `torch.optim.Adam`;
+when the map grows or is pruned in place, `grow_opt_state` and
+`compact_opt_state` carry its moments along (the reference's
+cat_tensors_to_optimizer and prune_optimizer surgery, gaussian.cu:430-472).
 """
 
 from __future__ import annotations
@@ -145,6 +146,46 @@ def apply_lr_schedule(optimizer: torch.optim.Optimizer):
             continue
         state = optimizer.state.get(group["params"][0], {})
         group["lr"] = _log_lerp(*sched, step=int(state.get("step", 0)))
+
+
+def _moment_rows(optimizer: torch.optim.Optimizer, rows: int):
+    """Every Adam moment (exp_avg, exp_avg_sq) with `rows` leading rows, as
+    (state dict, key) pairs; `step` is left alone."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st and st[key].dim() >= 1 and st[key].shape[0] == rows:
+                    yield st, key
+
+
+@torch.no_grad()
+def grow_opt_state(optimizer: torch.optim.Optimizer, old_capacity: int,
+                   new_capacity: int) -> torch.optim.Optimizer:
+    """Zero-pad the Adam moments when the parameters grew in place from
+    old_capacity to new_capacity rows (cat_tensors_to_optimizer,
+    gaussian.cu:451-472); each group's `step` is kept, as the JAX package
+    keeps optax's `count`. A parameter with no state yet (no step taken)
+    needs none. Returns the optimizer."""
+    pad = new_capacity - old_capacity
+    for st, key in list(_moment_rows(optimizer, old_capacity)):
+        m = st[key]
+        st[key] = torch.cat([m, m.new_zeros((pad,) + tuple(m.shape[1:]))], dim=0)
+    return optimizer
+
+
+@torch.no_grad()
+def compact_opt_state(optimizer: torch.optim.Optimizer, order, count) -> torch.optim.Optimizer:
+    """Permute the Adam moments with a prune permutation and zero the rows
+    past the surviving count, as gaussian_model.compact does to the
+    parameters: each gaussian keeps its own moments and freed rows start
+    cold like newly appended ones. Returns the optimizer."""
+    cap = order.shape[0]
+    live = torch.arange(cap, device=order.device) < count
+    for st, key in list(_moment_rows(optimizer, cap)):
+        m = st[key]
+        st[key] = torch.where(live.reshape((-1,) + (1,) * (m.dim() - 1)), m[order], 0.0)
+    return optimizer
 
 
 # ---------------------------------------------------------------------------

@@ -105,3 +105,15 @@ def image_loss(pred, gt, lambda_dssim: float = 0.2):
     """The training image loss (lioOptimization.cpp:1705-1712):
     (1 - lambda) * L1 + lambda * (1 - SSIM)."""
     return (1.0 - lambda_dssim) * l1_loss(pred, gt) + lambda_dssim * (1.0 - ssim(pred, gt))
+
+
+def smooth_depth(depth):
+    """loss_utils.cuh:73-87: |3x3-gaussian-smoothed depth - depth| mean.
+
+    The 3x3 window [[1,2,1],[2,4,2],[1,2,1]]/16 is the outer product of the
+    taps [1/4, 1/2, 1/4] (every product exact in f32), so the zero-padded
+    SAME smoothing is one separable blur_many call: K3 on the card.
+    """
+    taps = np.asarray([0.25, 0.5, 0.25], np.float32)
+    sm = blur_many(depth[None], taps)[0]
+    return torch.abs(sm - depth).mean()

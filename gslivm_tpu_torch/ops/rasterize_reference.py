@@ -309,7 +309,10 @@ def rasterize_naive(
         sh_degree=sh_degree, scale_modifier=scale_modifier,
         active_mask=active_mask,
     )
-    order = depth_order(pre)
+    # the gaussians preprocess culled (valid False, sorted last) take no part
+    # in any pixel: composite the valid prefix only (at least one row, to
+    # keep the shapes), which reads the valid count back once
+    order = depth_order(pre)[:max(int(pre.valid.sum()), 1)]
     pre_sorted = PreprocessedGaussians(*(x[order] for x in pre))
 
     ys, xs = torch.meshgrid(torch.arange(H, device=means.device),

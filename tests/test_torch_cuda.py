@@ -1,6 +1,7 @@
 """K1 (with its checkpoints), K2, K3 and the tools' kernels T1 and T2 on
 the card against their plain PyTorch versions, the tiles backend's
-gradients against the naive backend's, and a few train steps, at small
+gradients against the naive backend's, a few train steps, and the
+incremental mapper (GP ingest, growth, training, pruning), at small
 shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
 card with nvcc and skips elsewhere. Run on the card with:
 
@@ -11,10 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from gslivm_tpu_torch import convert, kernels
+from gslivm_tpu_torch import convert, kernels, pipeline
+from gslivm_tpu_torch.config import Config, GpParams
+from gslivm_tpu_torch.frontend import gpmap, synthetic
 from gslivm_tpu_torch.models import training
 from gslivm_tpu_torch.models.cameras import make_camera
-from gslivm_tpu_torch.ops import blur, losses, rasterize, rasterize_reference, rasterize_tiles
+from gslivm_tpu_torch.ops import (blur, gp3d, losses, rasterize, rasterize_reference,
+                                  rasterize_tiles)
 from gslivm_tpu_torch.tools import microbench_fwdablate, microbench_roll
 
 pytestmark = pytest.mark.cuda
@@ -472,3 +476,88 @@ def test_t2_reports_k1s_residency(cuda, variant):
     u = kernels.usage("microbench_fwdablate", microbench_fwdablate.VARIANTS.index(variant))
     assert u["blocks_per_sm"] >= 4 and 0 < u["registers"] <= 64, u
     assert u["static_smem"] <= 128 * 16 * 4 and u["dynamic_smem"] == 0, u
+
+
+def _scaled(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+
+
+def test_gp_forward_and_colorize_on_card_match_the_cpu(cuda):
+    """The same GP batches (two synthetic frames, grid 0.5) through
+    gp_forward and colorize on the card and on the CPU: masks equal, values
+    scale-normalised <= 1e-4 (batched Cholesky and einsums of two
+    libraries in f32). TF32 must be off: it would move var_mean near its
+    threshold."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg = GpParams(grid=0.5)
+    frames = synthetic.make_sequence(n_frames=2, width=96, height=64,
+                                     points_per_frame=3000, device="cpu")
+    gm_cpu = gpmap.GpMap(cfg, device="cpu")
+    live = 0
+    for fr in frames:
+        div = gm_cpu.divide_points(fr.points_world)
+        rc = gp3d.gp_forward(div.batch, cfg)
+        rg = gp3d.gp_forward(gp3d.GpBatch(*(t.to(cuda) for t in div.batch)), cfg)
+        for f in gp3d.GpResult._fields:
+            a, b = getattr(rg, f).cpu(), getattr(rc, f)
+            if b.dtype == torch.bool:
+                assert torch.equal(a, b), f
+            else:
+                assert _scaled(a, b) <= 1e-4, f
+        gm_cpu.update_variance(div.hashes, rc.reopen.numpy(), rc.update_variance.numpy())
+        live += int(div.batch.mask.sum())
+        proj = synthetic.camera_projection(fr.camera)
+        image = torch.from_numpy(fr.image)
+        cc, vc = gp3d.colorize(rc.means, proj, image)
+        cg, vg = gp3d.colorize(rc.means.to(cuda), gp3d.CameraProjection(
+            *(t.to(cuda) for t in proj)), image.to(cuda))
+        assert torch.equal(vg.cpu(), vc) and torch.equal(cg.cpu(), cc)
+    assert live > 50
+
+
+def test_mapper_on_card_grows_trains_and_prunes(cuda):
+    """Three 96x64 frames from a 1,024-row map: the capacity grows, 20
+    steps train through K1, K2 and K3 with finite losses, a prune compacts
+    the map, and the six Adam states keep `capacity` rows, keyed by the
+    module's own Parameters."""
+    cfg = Config(gp=GpParams(grid=0.5))
+    mapper = pipeline.IncrementalMapper(config=cfg, initial_capacity=1024,
+                                        bootstrap_points=200, device=cuda)
+    for fr in synthetic.make_sequence(n_frames=3, width=96, height=64,
+                                      points_per_frame=5000, device=cuda):
+        mapper.add_frame(fr)
+    assert mapper.params.capacity > 1024 and len(mapper.cameras) == 3
+    counters = (rasterize_tiles.composite_tiles, rasterize_tiles.composite_tiles_bwd,
+                blur.blur_cuda)
+    before = [c.launches for c in counters]
+    metrics = [mapper.train_iteration() for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(c.launches > b for c, b in zip(counters, before))
+    assert all(np.isfinite(float(m.loss)) for m in metrics)
+    n0 = int(mapper.params.n_active)
+    cut = float(mapper.params.get_opacity().detach()[:n0, 0].quantile(0.1))
+    dropped = mapper.prune_map(min_opacity=cut)
+    assert 0 < dropped < n0 and int(mapper.params.n_active) == n0 - dropped
+    assert np.isfinite(float(mapper.train_iteration().loss))
+    for g in mapper.optimizer.param_groups:
+        (p,) = g["params"]
+        assert p is getattr(mapper.params, g["name"])
+        st = mapper.optimizer.state[p]
+        assert st["exp_avg"].shape == st["exp_avg_sq"].shape == p.shape
+        assert p.shape[0] == mapper.params.capacity
+    ev = mapper.evaluate()
+    assert ev["keyframes"] == 3 and np.isfinite(ev["mean_psnr"])
+
+
+def test_concurrent_mapper_on_card_drains_and_joins(cuda):
+    mapper = pipeline.IncrementalMapper(config=Config(gp=GpParams(grid=0.5)),
+                                        initial_capacity=2048, bootstrap_points=200,
+                                        device=cuda)
+    cm = pipeline.ConcurrentMapper(mapper, iters_per_frame=3)
+    for fr in synthetic.make_sequence(n_frames=3, width=96, height=64,
+                                      points_per_frame=3000, device=cuda):
+        cm.submit_frame(fr)
+    assert cm.finish() is mapper
+    assert cm.frames_mapped == 3 and cm.trained >= 3 and not cm._thread.is_alive()
+    assert np.isfinite(float(cm.last_metrics.loss))

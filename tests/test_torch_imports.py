@@ -54,12 +54,16 @@ def test_importing_every_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=PKG.parent, timeout=120, check=True)
     added = out.stdout.split()
-    assert "gslivm_tpu_torch.ops.rasterize_tiles" in added
+    for m in ("gslivm_tpu_torch.ops.rasterize_tiles", "gslivm_tpu_torch.pipeline",
+              "gslivm_tpu_torch.frontend.gpmap", "gslivm_tpu_torch.frontend.synthetic",
+              "gslivm_tpu_torch.ops.gp3d"):
+        assert m in added, m
     assert not [m for m in added if _forbidden(m)]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
-    from gslivm_tpu_torch import convert
+    from gslivm_tpu_torch import convert, pipeline
+    from gslivm_tpu_torch.frontend import gpmap, synthetic
     from gslivm_tpu_torch.models import cameras, gaussian_model, training
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -74,12 +78,19 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: convert.simi_from_numpy({"points": np.zeros((2, 3)), "point_mask": np.ones(2),
                                          "gauss_idx": np.zeros(2), "gauss_mask": np.ones(2)}),
         lambda: training.empty_simi(),
+        lambda: convert.cam_projection_from_numpy(
+            {"R_wc": np.eye(3), "t_wc": np.zeros(3), "fx": 1.0, "fy": 1.0, "cx": 0.0,
+             "cy": 0.0, "dist": np.zeros(4)}),
+        lambda: gpmap.GpMap(),
+        lambda: synthetic.make_sequence(n_frames=1, width=8, height=8, points_per_frame=10),
+        lambda: pipeline.IncrementalMapper(initial_capacity=8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     # and each runs when the caller asks for the CPU
     assert gaussian_model.load_ply(str(tmp_path / "m.ply"), device="cpu").xyz.device.type == "cpu"
+    assert pipeline.IncrementalMapper(initial_capacity=8, device="cpu").params.xyz.device.type == "cpu"
 
 
 def test_kernels_are_not_built_at_import():
