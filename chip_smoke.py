@@ -88,11 +88,40 @@ It asserts finite losses, a growth while Adam's moments are live, Adam's
 rows equal to the capacity after every growth and the prune, keyframe 0
 up >= 3 dB and the keyframe mean at or above its staged mean.
 
+The system's entry point (`gslivm_tpu_torch/frontend/livo.py` into the
+mapper): livo drives the LIVO front end with raw sensor streams of the
+synthetic room (`synthetic.dolly_stream`: the e2e test's dolly,
+tests/test_e2e_regression.py:41-53, for 50 sweeps at 10 Hz; 24,000 LiDAR
+points a sweep, each sampled at its own time; IMU at 200 Hz; one 640x512
+RGB image a sweep, fed uncompressed), the e2e test's front-end options,
+GP grid 0.1 and 500 bootstrap points; the front end's own frames go to the
+mapper with 10 train_iterations a frame (the K1-K3 counters set to 0 just
+before the loop and read just after: launches_livo). It prints the front
+end's host ms per sweep by stage (sync and IMU, deskew, ICP, colour map,
+gray, LK, F-RANSAC, PnP, esikf and photometric, render_recent, emit),
+whether the native voxel map is built, the frames emitted, the ATE against
+the dolly (asserted < 0.05 m, the e2e floor), ingest and train_iter_ms as
+in map with one profiled iteration, the map's size, growths and peak
+memory, the staged and final keyframe PSNR (keyframe 0 up >= 3 dB and the
+mean at or above its staged mean, asserted), the pipeline fields of
+run_synthetic for the serial loop and for a second run through
+ConcurrentMapper (the front end's positions asserted equal in both), and
+kernel_parity on the serial mapper at its final capacity and budgets, with
+map's gates. checkpoint saves that mapper, loads it into a fresh card
+mapper (parameters, Adam moments and steps bit-equal, each Adam state keyed
+to the restored mapper's own Parameters; registry, loss-anchor keys, colour
+pool, GP cells and cameras equal; evaluate() equal), trains 10 more
+iterations (finite) and loads the same files into a CPU mapper (parameters
+equal), with the bytes and the save and load seconds. run_synthetic runs
+`python -m gslivm_tpu_torch.examples.run_synthetic` at its defaults on the
+card in a subprocess: exit 0 and every artifact written.
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
 launches in kernelcost and step_profile, and `launches_map`, their
-launches in the map loop; K1, K2, K3 and T2 carry their
+launches in the map loop, and `launches_livo`, their launches in the
+livo loop (0 for T1 and T2); K1, K2, K3 and T2 carry their
 registers and blocks per SM and say where their times before the redesign
 stand, which this script does not measure), and last {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero; without CUDA the script
@@ -163,6 +192,16 @@ MAP_AFTER_PRUNE = 20    # steps after the forced prune
 # the JAX package's ingest of this configuration on a CPU (all 50 frames,
 # naive backend, no training): the gaussian count the port should reach
 JAX_CPU_GAUSSIANS = 179_672
+# the LIVO configuration: the system's entry point, raw sensors to map. The
+# e2e dolly (tests/test_e2e_regression.py:41-53) for 50 sweeps at 10 Hz;
+# 24,000 LiDAR points a sweep (a Livox Avia's 240k points/s), each sampled at
+# its own time; IMU at 200 Hz; one 640x512 RGB image a sweep (r3live's
+# 1280x1024 at ratio 0.5, configs/datasets/r3live.yaml:8-10); the e2e test's
+# front-end options, GP grid 0.1 and 500 bootstrap points as in `map`
+LIVO_SWEEPS, LIVO_W, LIVO_H, LIVO_POINTS = 50, 640, 512, 24_000
+LIVO_ITERS = 10
+LIVO_ATE_MAX = 0.05  # the e2e floor (test_e2e_regression.py:211)
+LIVO_CHECKPOINT_ITERS = 10
 
 
 def emit(phase: str, **fields):
@@ -363,7 +402,7 @@ def map_parity(frames_cpu, frames_gpu, cfg, dev):
     return out
 
 
-def map_kernel_parity(mapper, dev):
+def map_kernel_parity(mapper, dev, size=(MAP_W, MAP_H)):
     """K1, K2 and K3 against their plain versions at the map loop's own
     shapes: the views of one train_iteration drawn by the mapper's sampler,
     binned at its current capacity and refitted budgets, the cotangents of
@@ -465,7 +504,7 @@ def map_kernel_parity(mapper, dev):
            "ckpt_walked_values": k1["ckpt_values"], "k2_max_scaled_err": k2,
            "k2_param_scaled_err": param_err, "k1_k2_tol": 1e-3,
            "k3_max_abs_err": k3, "k3_tol": 1e-5}
-    assert views and all(v["width"] == MAP_W and v["height"] == MAP_H for v in shapes), out
+    assert views and all((v["width"], v["height"]) == size for v in shapes), out
     assert k1["rows"] <= 1e-3 and k1["ckpt"] <= 1e-3, out
     assert k1["ncontrib"] <= 1e-3 * k1["pixels"] and k1["neff"] <= 1e-3 * k1["tiles"], out
     assert k1["flags"] <= 1e-3 * k1["ckpt_values"], out
@@ -617,6 +656,311 @@ def map_loop(frames, cfg, dev, profiled, counters):
     assert final[:, 0].mean() >= staged[:, 0].mean(), out["mean_psnr_staged_final"]
     assert all(v > 0 for v in launches.values()), launches
     return out, launches
+
+
+def livo_config():
+    """The LIVO configuration: the e2e test's front-end options
+    (test_e2e_regression.py:61-69) with the map phase's GP grid."""
+    from gslivm_tpu_torch.config import Config, GpParams, IcpOptions, OdometryOptions
+
+    return Config(
+        gp=GpParams(grid=MAP_GRID),
+        odometry=OdometryOptions(init_num_frames=2, voxel_size=0.05, sample_voxel_size=0.6,
+                                 init_voxel_size=0.05, init_sample_voxel_size=0.6),
+        icp=IcpOptions(min_number_neighbors=8, max_num_residuals=300, size_voxel_map=0.5,
+                       num_iters_icp=6))
+
+
+def livo_frontend(stream, cfg, dev):
+    """A LivoFrontend on the stream's camera, its ESKF initialised by the
+    stream's static IMU samples."""
+    from gslivm_tpu_torch.frontend.livo import LivoFrontend
+
+    fe = LivoFrontend(config=cfg, fx=stream.fx, fy=stream.fy, cx=stream.cx, cy=stream.cy,
+                      width=LIVO_W, height=LIVO_H, device=dev)
+    for s in stream.init_imu:
+        fe.push_imu(*s)
+    return fe
+
+
+def push_sweep(fe, sweep):
+    """One sweep's raw data into the front end; returns the frames it emitted."""
+    fe.push_lidar(sweep.lidar)
+    for s in sweep.imu:
+        fe.push_imu(*s)
+    fe.push_image(sweep.image_time, sweep.image)
+    return fe.pop_frames()
+
+
+def pipeline_fields(mode, sweeps, trained, wall, frontend_s, mapper_s) -> dict:
+    """The `pipeline:` line of examples/run_synthetic.py."""
+    serial_sum = frontend_s + mapper_s
+    return {"mode": mode, "frames": sweeps, "train_iters": trained, "wall_s": wall,
+            "frontend_s": frontend_s, "mapper_busy_s": mapper_s, "serial_sum_s": serial_sum,
+            "overlap_gain": serial_sum / wall, "wall_fps": sweeps / wall}
+
+
+def livo_serial(stream, cfg, dev, profiled, counters):
+    """The system's main path, serial: each sweep's raw data through the
+    LIVO front end, its frames to the mapper, LIVO_ITERS train_iterations
+    a frame. `counters` count the loop (ingest and training), none of the
+    quality probes. Returns (phase fields, launches by kernel, mapper, the
+    front end's position after each sweep)."""
+    import torch
+
+    from gslivm_tpu_torch import pipeline
+    from gslivm_tpu_torch.frontend import native
+    from gslivm_tpu_torch.ops import losses
+
+    fe = livo_frontend(stream, cfg, dev)
+    mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
+
+    def uncounted(fn):
+        saved = [c.launches for c in counters.values()]
+        try:
+            return fn()
+        finally:
+            for c, n in zip(counters.values(), saved):
+                c.launches = n
+
+    def keyframe_scores(i):
+        out = mapper.render_keyframe(i)
+        gt = mapper._gt_device[i]
+        return torch.stack([losses.psnr(out.color, gt), losses.ssim(out.color, gt)])
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    capacity, growths, ingest, staged, losses_, events = [mapper.params.capacity], [], [], [], [], []
+    stages, est, gt, n_frames = [], [], [], 0
+    t_frontend = t_mapper = t_probe = 0.0
+    t_loop = time.perf_counter()
+    for sweep in stream.sweeps:
+        fe.stage_seconds.clear()
+        t0 = time.perf_counter()
+        frames = push_sweep(fe, sweep)
+        t_frontend += time.perf_counter() - t0
+        stages.append(dict(fe.stage_seconds))
+        est.append(fe.pose[1])
+        gt.append(sweep.gt_displacement)
+        n_frames += len(frames)
+        for fr in frames:
+            kf = len(mapper.cameras)
+            t0 = time.perf_counter()
+            stats = mapper.add_frame(fr)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ingest.append({"total": t1 - t0, **mapper.ingest_seconds})
+            if mapper.params.capacity != capacity[-1]:
+                growths.append({"sweep": len(stages) - 1, "from": capacity[-1],
+                                "to": mapper.params.capacity})
+                capacity.append(mapper.params.capacity)
+            if len(mapper.cameras) > kf:  # staged: its score before training on it
+                staged.append(uncounted(lambda: keyframe_scores(kf)))
+                torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            t_probe += t2 - t1
+            frame_losses = []
+            for _ in range(LIVO_ITERS):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                m = mapper.train_iteration()
+                e1.record()
+                if m is not None:
+                    events.append((e0, e1))
+                    frame_losses.append(m.loss)
+            if frame_losses:  # one read per frame
+                losses_.append(torch.stack(frame_losses).cpu())
+            t_mapper += (t1 - t0) + time.perf_counter() - t2
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_loop - t_probe  # the loop without the staged probes
+    launches = {k: c.launches for k, c in counters.items()}
+    iter_ms = np.asarray([a.elapsed_time(b) for a, b in events])
+    all_losses = torch.cat(losses_).numpy()
+    assert np.isfinite(all_losses).all(), all_losses
+    prof = uncounted(lambda: profiled(mapper.train_iteration))
+    final = uncounted(lambda: torch.stack([keyframe_scores(i)
+                                           for i in range(len(mapper.cameras))]))
+    final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kernel_parity = uncounted(lambda: map_kernel_parity(mapper, dev, (LIVO_W, LIVO_H)))
+    est, gt = np.asarray(est), np.asarray(gt)
+    ate = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
+    stage_ms = {k: [st.get(k, 0.0) * 1e3 for st in stages] for k in fe.stage_seconds}
+    ing = {k: [f[k] * 1e3 for f in ingest] for k in ingest[0]}
+    out = {
+        "config": {"sweeps": LIVO_SWEEPS, "width": LIVO_W, "height": LIVO_H,
+                   "points_per_sweep": LIVO_POINTS, "imu_hz": 200, "grid": MAP_GRID,
+                   "bootstrap_points": MAP_BOOTSTRAP, "iters_per_frame": LIVO_ITERS},
+        "native_voxel_map": native.available(),
+        "vmap": type(fe.odometry.vmap).__name__,
+        "frames_emitted": n_frames, "color_map_points": len(fe.color_map),
+        "tracks": len(fe.tracker.track_idx), "vio_time_td": fe.vio_state.time_td,
+        "frontend_ms_per_sweep_median": float(np.median([sum(st.values()) for st in stages]) * 1e3),
+        "frontend_ms_per_sweep_max": float(np.max([sum(st.values()) for st in stages]) * 1e3),
+        "frontend_stage_ms_median": {k: float(np.median(v)) for k, v in stage_ms.items()},
+        "frontend_stage_ms_max": {k: float(np.max(v)) for k, v in stage_ms.items()},
+        "ate_m": ate, "ate_max_m": LIVO_ATE_MAX, "final_position": est[-1].tolist(),
+        "final_gt_position": gt[-1].tolist(),
+        "gaussians": int(mapper.params.n_active), "keyframes": len(mapper.cameras),
+        "registry_voxels": len(mapper.registry), "last_stats": stats,
+        "capacity_history": capacity, "growths": growths,
+        "budget_refits": mapper.budget_refits, "escalations": mapper.overflow_escalations,
+        "settings": {"max_instances": mapper.settings.max_instances,
+                     "max_chunks_per_tile": mapper.settings.max_chunks_per_tile},
+        "ingest_ms_median": {k: float(np.median(v)) for k, v in ing.items()},
+        "ingest_ms_max": {k: float(np.max(v)) for k, v in ing.items()},
+        "train_iterations": len(iter_ms),
+        "train_iter_ms_median": float(np.median(iter_ms)),
+        "train_iter_ms_p90": float(np.percentile(iter_ms, 90)),
+        "profiled_iteration": {k: v for k, v in prof.items() if k != "top"},
+        "profiled_top": prof["top"][:6],
+        "launches": launches,
+        "loss_first_last": [float(all_losses[0]), float(all_losses[-1])],
+        "psnr_staged": staged[:, 0].tolist(), "psnr_final": final[:, 0].tolist(),
+        "kf0_psnr_staged_final": [float(staged[0, 0]), float(final[0, 0])],
+        "mean_psnr_staged_final": [float(staged[:, 0].mean()), float(final[:, 0].mean())],
+        "mean_ssim_staged_final": [float(staged[:, 1].mean()), float(final[:, 1].mean())],
+        "memory_at_start_gb": mem0 / 1e9, "peak_memory_gb": peak_gb,
+        "pipeline": pipeline_fields("serial", len(stream.sweeps), mapper.iter, wall,
+                                    t_frontend, t_mapper),
+        "kernel_parity": kernel_parity,
+    }
+    assert n_frames >= len(stream.sweeps) - 5, out
+    assert ate < LIVO_ATE_MAX, out["ate_m"]
+    assert final[0, 0] >= staged[0, 0] + 3.0, out["kf0_psnr_staged_final"]
+    assert final[:, 0].mean() >= staged[:, 0].mean(), out["mean_psnr_staged_final"]
+    assert all(v > 0 for v in launches.values()), launches
+    return out, launches, mapper, est
+
+
+def livo_overlap(stream, cfg, dev):
+    """The same path with the mapper in ConcurrentMapper's worker (as
+    run_synthetic's --overlap): the front end takes the next sweep while the
+    card trains. Returns (fields, the front end's positions)."""
+    import torch
+
+    from gslivm_tpu_torch import pipeline
+
+    fe = livo_frontend(stream, cfg, dev)
+    cm = pipeline.ConcurrentMapper(
+        pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev),
+        iters_per_frame=LIVO_ITERS)
+    est, t_frontend = [], 0.0
+    t_loop = time.perf_counter()
+    for sweep in stream.sweeps:
+        t0 = time.perf_counter()
+        frames = push_sweep(fe, sweep)
+        t_frontend += time.perf_counter() - t0
+        est.append(fe.pose[1])
+        for fr in frames:
+            cm.submit_frame(fr)
+    mapper = cm.finish()
+    wall = time.perf_counter() - t_loop
+    ev = mapper.evaluate()
+    out = {"pipeline": pipeline_fields("overlap", len(stream.sweeps), cm.trained, wall,
+                                       t_frontend, cm.busy_s),
+           "frames_mapped": cm.frames_mapped, "keyframes": len(mapper.cameras),
+           "gaussians": int(mapper.params.n_active), "evaluate": ev,
+           "last_loss": float(cm.last_metrics.loss)}
+    assert np.isfinite(out["last_loss"]) and cm.trained > 0, out
+    del cm, mapper
+    torch.cuda.empty_cache()
+    return out, np.asarray(est)
+
+
+def checkpoint_check(mapper, cfg, dev):
+    """Save the LIVO mapper; load it into a fresh card mapper (parameters,
+    Adam moments and steps bit-equal; registry, colour pool, GP cells and
+    cameras equal; evaluate() equal), train it LIVO_CHECKPOINT_ITERS more
+    iterations (finite), and load the same files into a CPU mapper
+    (parameters equal)."""
+    import torch
+
+    from gslivm_tpu_torch import pipeline
+    from gslivm_tpu_torch.utils import checkpoint
+
+    def adam(m):
+        return {g["name"]: m.optimizer.state.get(g["params"][0], {})
+                for g in m.optimizer.param_groups}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save_mapper(mapper, tmp)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t0
+        sizes = {n: os.path.getsize(os.path.join(tmp, n)) for n in sorted(os.listdir(tmp))}
+        t0 = time.perf_counter()
+        card = checkpoint.load_mapper(
+            pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev), tmp)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cpu = checkpoint.load_mapper(
+            pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device="cpu"), tmp)
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        mapper.params.state_dict().values(), card.params.state_dict().values()))
+    adam_equal = all(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+                     for a, b in zip(adam(mapper).values(), adam(card).values()))
+    same_parameters = all(g["params"][0] is getattr(card.params, g["name"])
+                          for g in card.optimizer.param_groups)
+    pool_equal = (mapper._pending_color.keys() == card._pending_color.keys() and all(
+        all(np.array_equal(x, y) for x, y in zip(mapper._pending_color[h], card._pending_color[h]))
+        for h in mapper._pending_color))
+    cells_equal = (mapper.gpmap.cells.keys() == card.gpmap.cells.keys() and all(
+        np.array_equal(a.ijk, b.ijk) and np.array_equal(a.points, b.points)
+        and np.array_equal(a.variance, b.variance) and a.converged == b.converged
+        for a, b in ((mapper.gpmap.cells[h], card.gpmap.cells[h]) for h in mapper.gpmap.cells)))
+    cameras_equal = len(mapper.cameras) == len(card.cameras) and all(
+        torch.equal(getattr(a, f), getattr(b, f)) and (a.width, a.height) == (b.width, b.height)
+        for a, b in zip(mapper.cameras, card.cameras) for f in checkpoint._TENSOR_FIELDS)
+    ev, ev_card = mapper.evaluate(), card.evaluate()
+    more = torch.stack([card.train_iteration().loss
+                        for _ in range(LIVO_CHECKPOINT_ITERS)]).cpu().numpy()
+    cpu_equal = all(torch.equal(a, b.cpu()) for a, b in zip(
+        cpu.params.state_dict().values(), mapper.params.state_dict().values()))
+    out = {"bytes": sizes, "save_s": save_s, "load_s": load_s,
+           "capacity": card.params.capacity, "gaussians": int(card.params.n_active),
+           "params_bit_equal": params_equal, "adam_bit_equal": adam_equal,
+           "adam_keyed_to_own_parameters": same_parameters,
+           "registry_equal": card.registry._ranges == mapper.registry._ranges,
+           "loss_anchor_keys_equal": list(card.loss_anchors) == list(mapper.loss_anchors),
+           "pending_color_equal": pool_equal, "gp_cells_equal": cells_equal,
+           "cameras_equal": cameras_equal, "evaluate": ev, "evaluate_restored": ev_card,
+           "losses_after_resume": more.tolist(), "cpu_params_equal": cpu_equal}
+    assert params_equal and adam_equal and same_parameters and cpu_equal, out
+    assert out["registry_equal"] and out["loss_anchor_keys_equal"], out
+    assert pool_equal and cells_equal and cameras_equal, out
+    assert ev == ev_card, out
+    assert np.isfinite(more).all(), out
+    return out
+
+
+def run_synthetic_check(dev):
+    """The port's example at its defaults on the card, as a user runs it:
+    exit 0 and every artifact written."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "gslivm_tpu_torch.examples.run_synthetic",
+               "--out", tmp, "--device", str(dev)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = proc.stdout.splitlines()
+        listing = sorted(os.listdir(tmp))
+        pngs = sorted(os.listdir(os.path.join(tmp, "training"))) \
+            if os.path.isdir(os.path.join(tmp, "training")) else []
+    out = {"command": " ".join(["python", *cmd[1:4], "<tmp>", *cmd[5:]]),
+           "returncode": proc.returncode, "seconds": seconds, "artifacts": listing,
+           "training_pngs": len(pngs),
+           "pipeline": next((ln for ln in lines if ln.startswith("pipeline:")), None),
+           "eval": next((ln for ln in lines if ln.startswith("eval:")), None),
+           "offline_eval": next((ln for ln in lines if ln.startswith("offline eval")), None),
+           "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
+    assert proc.returncode == 0, out
+    assert {"map.ply", "rgb_map.pcd", "pose.txt", "cfg_args", "log_time.txt",
+            "training"} <= set(listing) and pngs, out
+    return out
 
 
 def main() -> int:
@@ -1157,6 +1501,24 @@ def main() -> int:
     emit("map", **map_fields)
     del frames
 
+    # ---- livo, checkpoint, run_synthetic: the system's entry point ---------
+    t0 = time.perf_counter()
+    stream = synthetic.dolly_stream(LIVO_SWEEPS, LIVO_W, LIVO_H, LIVO_POINTS)
+    stream_s = time.perf_counter() - t0
+    livo_cfg = livo_config()
+    livo_fields, livo_launches, livo_mapper, est = livo_serial(
+        stream, livo_cfg, dev, profiled, counters)
+    overlap, est_overlap = livo_overlap(stream, livo_cfg, dev)
+    same_poses = bool(np.array_equal(est, est_overlap))
+    emit("livo", stream_seconds=stream_s, **livo_fields, overlap=overlap,
+         overlap_positions_equal=same_poses)
+    assert same_poses  # the front end is deterministic whatever the mapper does
+    del stream
+    emit("checkpoint", **checkpoint_check(livo_mapper, livo_cfg, dev))
+    del livo_mapper
+    torch.cuda.empty_cache()
+    emit("run_synthetic", **run_synthetic_check(dev))
+
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
     k1_mean, k1_plain_mean = float(np.mean(k1_ms)), float(np.mean(plain_ms))
@@ -1164,9 +1526,10 @@ def main() -> int:
         {"name": "K1 tile_forward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_forward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:298",
-         "launches": launches["K1"] + train_launches["K1"] + map_launches["K1"],
+         "launches": launches["K1"] + train_launches["K1"] + map_launches["K1"]
+         + livo_launches["K1"],
          "launches_serve": launches["K1"], "launches_train_step": train_launches["K1"],
-         "launches_map": map_launches["K1"],
+         "launches_map": map_launches["K1"], "launches_livo": livo_launches["K1"],
          "max_abs_err": k1_err, "ms": k1_mean, "ckpt_ms": ckpt_ms,
          "plain_ms": k1_plain_mean,
          "bound_ms": k1_bound, "bound_by": k1_bound_by, "library_ms": None,
@@ -1175,8 +1538,9 @@ def main() -> int:
         {"name": "K2 tile_backward", "route": "cuda",
          "source": "gslivm_tpu_torch/csrc/tile_backward.cu",
          "replaces": "gslivm_tpu/ops/rasterize_pallas.py:455",
-         "launches": train_launches["K2"] + map_launches["K2"],
+         "launches": train_launches["K2"] + map_launches["K2"] + livo_launches["K2"],
          "launches_train_step": train_launches["K2"], "launches_map": map_launches["K2"],
+         "launches_livo": livo_launches["K2"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_bound_by, "library_ms": None,
@@ -1184,9 +1548,10 @@ def main() -> int:
          "redesigned": True, "earlier_times": EARLIER_TIMES, **tile_usage["K2"]},
         {"name": "K3 blur", "route": "cuda", "source": "gslivm_tpu_torch/csrc/blur.cu",
          "replaces": "gslivm_tpu/ops/blur_pallas.py:34",
-         "launches": launches["K3"] + train_launches["K3"] + map_launches["K3"],
+         "launches": launches["K3"] + train_launches["K3"] + map_launches["K3"]
+         + livo_launches["K3"],
          "launches_serve": launches["K3"], "launches_train_step": train_launches["K3"],
-         "launches_map": map_launches["K3"],
+         "launches_map": map_launches["K3"], "launches_livo": livo_launches["K3"],
          "max_abs_err": k3_err, "ms": k3["serve"]["kernel_ms"],
          "plain_ms": k3["serve"]["plain_ms"], "bound_ms": k3["serve"]["bound_ms"],
          "bound_by": k3["serve"]["bound_by"], "library_ms": lib_ms,
@@ -1197,6 +1562,7 @@ def main() -> int:
          "source": "gslivm_tpu_torch/csrc/microbench_fetch.cu",
          "replaces": "tools/microbench_roll.py:42",
          "launches": t1_launches, "launches_tools": t1_launches, "launches_map": 0,
+         "launches_livo": 0,
          "max_abs_err": max(r["max_abs_err"] for r in t1.values()),
          "max_rel_err": max(r["max_rel_err"] for r in t1.values()),
          "ms": t1["A"]["ms"], "plain_ms": t1["A"]["plain_ms"],
@@ -1207,6 +1573,7 @@ def main() -> int:
          "source": "gslivm_tpu_torch/csrc/microbench_fwdablate.cu",
          "replaces": "tools/microbench_fwdablate.py:51",
          "launches": t2_launches, "launches_tools": t2_launches, "launches_map": 0,
+         "launches_livo": 0,
          "max_abs_err": max(r["max_abs_err"] for r in t2.values()),
          "max_scaled_err": max(r["max_scaled_err"] for r in t2.values()),
          "ms": t2["full"]["ms"], "plain_ms": t2_plain_ms,

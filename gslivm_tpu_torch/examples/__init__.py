@@ -1,0 +1,3 @@
+"""The port's example entry points (its own copies of the JAX package's
+examples/): `python -m gslivm_tpu_torch.examples.run_synthetic` and
+`python -m gslivm_tpu_torch.examples.offline_fit`."""

@@ -1,2 +1,4 @@
-"""Host-side front end of the port: the voxel-GP map and the synthetic
-frame source (own copies of gslivm_tpu/frontend/{gpmap,synthetic}.py)."""
+"""Host-side front end of the port: the voxel-GP map, the synthetic data
+source, and the LIVO front end (sensors, ESKF + plane-ICP odometry, VIO,
+`livo.LivoFrontend`), own copies of gslivm_tpu/frontend/*.py; `vision`
+stands in for the OpenCV calls of the image path."""

@@ -10,7 +10,9 @@ colors — everything the mapping pipeline consumes, with known geometry.
 The port's own copy of gslivm_tpu/frontend/synthetic.py: images and points
 are made in numpy exactly as there (bit for bit), from the cameras'
 float32 values; only the cameras and their colorization projections are
-tensors, on `device`.
+tensors, on `device`. `dolly_stream` (the port's own addition) makes the
+raw sensor streams of tests/test_e2e_regression.py's moving dolly for the
+LIVO front end.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from ..models.cameras import Camera, make_camera
 from ..ops.gp3d import CameraProjection
 from ..pipeline import Frame
+from .sensors import LidarSweep
 
 
 class Plane(NamedTuple):
@@ -207,3 +210,87 @@ def make_sequence(
             cam_projection=camera_projection(cam),
         ))
     return frames
+
+
+# ----------------------------------------------------------------------
+# raw sensor streams for the LIVO front end
+# ----------------------------------------------------------------------
+
+DOLLY_ORIGIN = np.array([-0.8, -0.2, 0.4])
+GRAVITY = np.array([0.0, 0.0, 9.81])
+SWEEP_DT, IMU_DT = 0.1, 0.005  # 10 Hz LiDAR and camera, 200 Hz IMU
+LIDAR_FOVX = 1.0  # the rays' camera (its fovy follows the image's aspect)
+
+
+def dolly_position(t) -> np.ndarray:
+    """The e2e dolly (tests/test_e2e_regression.py:41-53): accelerate at
+    0.3 m/s^2 along +x for 0.5 s, then glide at 0.15 m/s. [..., 3] for
+    times [...] since the motion began."""
+    t = np.asarray(t, np.float64)
+    x = np.where(t < 0.5, 0.5 * 0.3 * t * t, 0.5 * 0.3 * 0.25 + 0.15 * (t - 0.5))
+    return DOLLY_ORIGIN + x[..., None] * np.array([1.0, 0.0, 0.0])
+
+
+class SensorSweep(NamedTuple):
+    """One sweep of raw sensor data, pushed in this order: the LiDAR sweep,
+    the IMU samples, the image."""
+
+    lidar: LidarSweep
+    imu: list  # [(t, gyr [3], acc [3])]
+    image_time: float
+    image: np.ndarray  # [H, W, 3] uint8
+    t_end: float
+    gt_displacement: np.ndarray  # [3] at t_end, from where the motion began
+
+
+class DollyStream(NamedTuple):
+    init_imu: list  # the static samples that initialise the ESKF
+    sweeps: list[SensorSweep]
+    fx: float  # the image camera's intrinsics (centred principal point)
+    fy: float
+    cx: float
+    cy: float
+
+
+def dolly_stream(n_sweeps: int, width: int, height: int, points_per_sweep: int,
+                 seed: int = 0) -> DollyStream:
+    """The raw streams of tests/test_e2e_regression.py's runner, on the
+    default scene, extended to `n_sweeps`: 80 static IMU samples, then per
+    sweep a LiDAR sweep whose points are each sampled from the true pose at
+    their own time (true motion distortion; identity attitude), IMU at
+    200 Hz with N(0, 1e-3) noise, and one RGB image 0.095 s into the
+    sweep. The LiDAR rays are cast through a camera of LIDAR_FOVX at the
+    sweep's start. Returns numpy data only."""
+    planes = default_scene()
+    rng = np.random.default_rng(seed)
+    fovx, fovy = LIDAR_FOVX, LIDAR_FOVX * height / width
+    sweep_dt, imu_dt = SWEEP_DT, IMU_DT
+    t, init = 0.0, []
+    for _ in range(80):
+        init.append((t, np.zeros(3), GRAVITY + rng.normal(0, 1e-3, 3)))
+        t += imu_dt
+    t0 = t
+    sweeps = []
+    for _ in range(n_sweeps):
+        tau0 = t
+        rel = np.sort(rng.uniform(0.0, sweep_dt * 0.9, points_per_sweep))
+        rays = make_camera(np.eye(3), dolly_position(tau0 - t0), width, height,
+                           fovx=fovx, fovy=fovy, device="cpu")
+        pts_w = sample_surface_points(rays, planes, points_per_sweep, rng)
+        rel = rel[: pts_w.shape[0]]
+        pts = pts_w - dolly_position(tau0 - t0 + rel)
+        lidar = LidarSweep(tau0, pts, rel, np.zeros(len(rel)))
+        imu = []
+        for j in range(int(round(sweep_dt / imu_dt))):
+            ti = tau0 + j * imu_dt
+            acc = np.array([0.3 if ti - t0 < 0.5 else 0.0, 0.0, 0.0])
+            imu.append((ti, np.zeros(3), acc + GRAVITY + rng.normal(0, 1e-3, 3)))
+        img_t = tau0 + 0.095
+        cam = make_camera(np.eye(3), dolly_position(img_t - t0), width, height,
+                          fovx=fovx, fovy=fovy, device="cpu")
+        t = tau0 + sweep_dt
+        sweeps.append(SensorSweep(lidar, imu, img_t, render_image(cam, planes), t,
+                                  dolly_position(t - t0) - dolly_position(0.0)))
+    fx = width / (2.0 * np.tan(fovx / 2.0))
+    fy = height / (2.0 * np.tan(fovy / 2.0))
+    return DollyStream(init, sweeps, fx, fy, (width - 1) / 2.0, (height - 1) / 2.0)

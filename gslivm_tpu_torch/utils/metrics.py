@@ -179,6 +179,26 @@ def evaluate_dirs(render_dir: str, gt_dir: str, lpips_required: bool = False,
     return _summarize(ms)
 
 
+def parse_log_time(path: str) -> dict:
+    """Parse a log_time.txt dump (plot_all_time.py-compatible format,
+    timer.cc:12-45): returns {'realtime_ms': float, 'sections': {name:
+    [(stamp, ms), ...]}}."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    realtime_ms = float(lines[0])
+    names = [n.strip() for n in lines[1].split(",") if n.strip()]
+    sections: dict[str, list] = {n: [] for n in names}
+    for row in lines[2:]:
+        cells = row.split(",")
+        for name, cell in zip(names, cells):
+            cell = cell.strip()
+            if not cell:
+                continue
+            stamp, ms = cell.split("=")
+            sections[name].append((float(stamp), float(ms)))
+    return {"realtime_ms": realtime_ms, "sections": sections}
+
+
 def inverse_depth_l1(depth_a, depth_b, epsilon: float = 1e-2,
                      device="cuda") -> float:
     """see_depth_l1.py:53-59: L1 between inverse depths."""

@@ -1,7 +1,8 @@
 """K1 (with its checkpoints), K2, K3 and the tools' kernels T1 and T2 on
 the card against their plain PyTorch versions, the tiles backend's
 gradients against the naive backend's, a few train steps, and the
-incremental mapper (GP ingest, growth, training, pruning), at small
+incremental mapper (GP ingest, growth, training, pruning), the LIVO front
+end into a card mapper and a card checkpoint, at small
 shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
 card with nvcc and skips elsewhere. Run on the card with:
 
@@ -561,3 +562,69 @@ def test_concurrent_mapper_on_card_drains_and_joins(cuda):
     assert cm.finish() is mapper
     assert cm.frames_mapped == 3 and cm.trained >= 3 and not cm._thread.is_alive()
     assert np.isfinite(float(cm.last_metrics.loss))
+
+
+def _livo_on(device, sweeps=3):
+    """The LIVO front end over `sweeps` sweeps of the e2e dolly at 96x64,
+    its frames into a mapper on `device` (2 train iterations a frame)."""
+    from gslivm_tpu_torch.config import IcpOptions, OdometryOptions
+    from gslivm_tpu_torch.frontend.livo import LivoFrontend
+
+    stream = synthetic.dolly_stream(sweeps, 96, 64, 12000)
+    cfg = Config(gp=GpParams(grid=0.5),
+                 odometry=OdometryOptions(init_num_frames=2, voxel_size=0.05,
+                                          sample_voxel_size=0.6, init_voxel_size=0.05,
+                                          init_sample_voxel_size=0.6),
+                 icp=IcpOptions(min_number_neighbors=8, max_num_residuals=300,
+                                size_voxel_map=0.5, num_iters_icp=6))
+    fe = LivoFrontend(config=cfg, fx=stream.fx, fy=stream.fy, cx=stream.cx, cy=stream.cy,
+                      width=96, height=64, device=device)
+    mapper = pipeline.IncrementalMapper(config=cfg, initial_capacity=1024,
+                                        bootstrap_points=50, device=device)
+    for s in stream.init_imu:
+        fe.push_imu(*s)
+    for sw in stream.sweeps:
+        fe.push_lidar(sw.lidar)
+        for s in sw.imu:
+            fe.push_imu(*s)
+        fe.push_image(sw.image_time, sw.image)
+        for fr in fe.pop_frames():
+            assert fr.camera.device.type == fr.cam_projection.R_wc.device.type == device.type
+            mapper.add_frame(fr)
+            for _ in range(2):
+                mapper.train_iteration()
+    return cfg, mapper
+
+
+def test_livo_sweeps_into_the_card_mapper(cuda):
+    counters = (rasterize_tiles.composite_tiles, rasterize_tiles.composite_tiles_bwd,
+                blur.blur_cuda)
+    before = [c.launches for c in counters]
+    _, mapper = _livo_on(cuda)
+    torch.cuda.synchronize()
+    assert mapper.started and len(mapper.cameras) >= 2
+    assert all(c.launches > b for c, b in zip(counters, before))
+    ev = mapper.evaluate()
+    assert np.isfinite(ev["mean_psnr"])
+
+
+def test_card_checkpoint_loads_on_the_card_and_on_the_cpu(cuda, tmp_path):
+    from gslivm_tpu_torch.utils import checkpoint
+
+    cfg, mapper = _livo_on(cuda)
+    checkpoint.save_mapper(mapper, str(tmp_path))
+    for device in (cuda, torch.device("cpu")):
+        r = checkpoint.load_mapper(pipeline.IncrementalMapper(
+            config=cfg, initial_capacity=1024, bootstrap_points=50, device=device),
+            str(tmp_path))
+        for a, b in zip(mapper.params.state_dict().values(), r.params.state_dict().values()):
+            assert b.device.type == device.type and torch.equal(a.cpu(), b.cpu())
+        for ga, gb in zip(mapper.optimizer.param_groups, r.optimizer.param_groups):
+            sa = mapper.optimizer.state[ga["params"][0]]
+            sb = r.optimizer.state[gb["params"][0]]
+            assert all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+        assert r.registry._ranges == mapper.registry._ranges
+        assert r.cameras[0].device.type == device.type
+        if device.type == "cuda":
+            assert r.evaluate() == mapper.evaluate()
+            assert np.isfinite(float(r.train_iteration().loss))

@@ -1,6 +1,7 @@
 """The port stands alone: no module of gslivm_tpu_torch imports JAX, flax,
-optax or the JAX package, importing it loads none of them, and its entry
-points refuse to fall back to the CPU on their own."""
+optax or the JAX package, importing it loads none of them, its main path
+runs without OpenCV, and its entry points refuse to fall back to the CPU
+on their own."""
 
 import ast
 import pathlib
@@ -56,14 +57,87 @@ def test_importing_every_module_loads_no_jax():
     added = out.stdout.split()
     for m in ("gslivm_tpu_torch.ops.rasterize_tiles", "gslivm_tpu_torch.pipeline",
               "gslivm_tpu_torch.frontend.gpmap", "gslivm_tpu_torch.frontend.synthetic",
-              "gslivm_tpu_torch.ops.gp3d"):
+              "gslivm_tpu_torch.ops.gp3d", *NEW_MODULES):
         assert m in added, m
     assert not [m for m in added if _forbidden(m)]
+    assert "cv2" not in added
+
+
+# the LIVO slice: the host front end, checkpoint, utils and examples
+NEW_MODULES = tuple(f"gslivm_tpu_torch.{m}" for m in (
+    "frontend.so3", "frontend.eskf", "frontend.voxelmap", "frontend.native",
+    "frontend.sensors", "frontend.odometry", "frontend.vision", "frontend.vio",
+    "frontend.livo", "utils.checkpoint", "utils.timer", "utils.outputs",
+    "utils.trajectory", "utils.watchdog", "utils.debug", "utils.metrics",
+    "examples.run_synthetic", "examples.offline_fit"))
+
+
+def test_opencv_is_imported_only_for_the_off_path_options():
+    """`import cv2` appears once, in livo.py's helper for the
+    image_resize_ratio and distortion options, inside a function."""
+    def cv2_imports(tree):
+        return [n for n in ast.walk(tree) if isinstance(n, ast.Import | ast.ImportFrom)
+                and "cv2" in [a.name for a in n.names] + [getattr(n, "module", None)]]
+
+    sites, found = set(), 0
+    for path in _modules():
+        tree = ast.parse(path.read_text(), str(path))
+        found += len(cv2_imports(tree))
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.FunctionDef) and cv2_imports(fn):
+                sites.add((path.name, fn.name))
+    assert sites == {("livo.py", "_cv2")} and found == 1, (sites, found)
+
+
+def test_livo_frontend_runs_without_opencv():
+    """With cv2 unimportable, the default-option front end runs on the CPU
+    over a few sweeps with images (LK, F and PnP RANSAC included) and one
+    emitted frame goes into a CPU mapper; the off-path options raise an
+    ImportError that names them."""
+    code = (
+        "import sys\n"
+        "sys.modules['cv2'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from gslivm_tpu_torch.config import Config, GpParams, IcpOptions, OdometryOptions\n"
+        "from gslivm_tpu_torch.frontend import synthetic\n"
+        "from gslivm_tpu_torch.frontend.livo import LivoFrontend\n"
+        "from gslivm_tpu_torch.pipeline import IncrementalMapper\n"
+        "st = synthetic.dolly_stream(6, 64, 48, 600)\n"
+        "cfg = Config(gp=GpParams(grid=0.5), odometry=OdometryOptions(init_num_frames=2,"
+        " sample_voxel_size=0.6, init_sample_voxel_size=0.6),"
+        " icp=IcpOptions(min_number_neighbors=8, size_voxel_map=0.5))\n"
+        "fe = LivoFrontend(cfg, fx=st.fx, fy=st.fy, cx=st.cx, cy=st.cy, width=64, height=48,"
+        " device='cpu')\n"
+        "for s in st.init_imu: fe.push_imu(*s)\n"
+        "for sw in st.sweeps:\n"
+        "    fe.push_lidar(sw.lidar)\n"
+        "    for s in sw.imu: fe.push_imu(*s)\n"
+        "    fe.push_image(sw.image_time, sw.image)\n"
+        "frames = fe.pop_frames()\n"
+        "assert len(frames) >= 4 and fe.stage_seconds['lk'] > 0, len(frames)\n"
+        "m = IncrementalMapper(cfg, bootstrap_points=50, initial_capacity=1024, device='cpu')\n"
+        "print(m.add_frame(frames[-1])['voxels']['cells'])\n"
+        "for kw in ({'image_resize_ratio': 0.5}, {'distortion': [0.1, 0, 0, 0]}):\n"
+        "    try:\n"
+        "        LivoFrontend(cfg, device='cpu', **kw)\n"
+        "    except ImportError as e:\n"
+        "        assert next(iter(kw)) in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError(kw)\n"
+        "print('cv2' in sys.modules and sys.modules['cv2'] is None)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PKG.parent, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    cells, untouched = out.stdout.split()
+    assert int(cells) > 0 and untouched == "True"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from gslivm_tpu_torch import convert, pipeline
+    from gslivm_tpu_torch.examples import offline_fit, run_synthetic
     from gslivm_tpu_torch.frontend import gpmap, synthetic
+    from gslivm_tpu_torch.frontend.livo import LivoFrontend
     from gslivm_tpu_torch.models import cameras, gaussian_model, training
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -84,6 +158,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: gpmap.GpMap(),
         lambda: synthetic.make_sequence(n_frames=1, width=8, height=8, points_per_frame=10),
         lambda: pipeline.IncrementalMapper(initial_capacity=8),
+        lambda: LivoFrontend(),
+        lambda: run_synthetic.main(["--out", str(tmp_path / "demo")]),
+        lambda: offline_fit.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -91,6 +168,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     # and each runs when the caller asks for the CPU
     assert gaussian_model.load_ply(str(tmp_path / "m.ply"), device="cpu").xyz.device.type == "cpu"
     assert pipeline.IncrementalMapper(initial_capacity=8, device="cpu").params.xyz.device.type == "cpu"
+    assert LivoFrontend(device="cpu").device.type == "cpu"
+    assert not (tmp_path / "demo").exists()
 
 
 def test_kernels_are_not_built_at_import():
