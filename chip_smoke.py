@@ -116,12 +116,46 @@ equal), with the bytes and the save and load seconds. run_synthetic runs
 `python -m gslivm_tpu_torch.examples.run_synthetic` at its defaults on the
 card in a subprocess: exit 0 and every artifact written.
 
+The sharded step (`gslivm_tpu_torch/parallel/`): shard takes the train
+phase's state (200,000 gaussians, three 1920x1080 views with a history
+pair, its ground truth and anchors) and (a) runs `sharded_train_step` in a
+world of one NCCL rank through `python -m
+gslivm_tpu_torch.tools.multihost_demo --nproc 1` in a subprocess, for the
+"tiles" and "primitive" renderers, against `train_step` from the same state
+(loss within 1e-5 relative, every parameter's .grad within 1e-3 of its
+scale, overflow 0; the rank sets the K1-K3 counters to 0 just before each
+step and reads them just after: launches_shard); with two or more cards it
+also runs a real NCCL world of them, else it prints "multi_rank": "1 card".
+(b) It runs the per-rank work of a (gauss 2, pixel 2) and a (4, 1) mesh one
+rank after another on the card, with no collective: each pixel band of each
+view, for "primitive" each depth slab's band (the slabs cut by the
+exchange's own packing, `split_depth_slabs`), the slabs folded by
+`fold_partials` and the bands stitched, against the single-device render
+(rows C, D, A, T within K1's gate and the stop bound) and the per-gaussian
+gradients of a fixed loss against the single-device ones; then the pixel
+ranks' loss bands of the stitched view 0 against its ground truth for N in
+1, 2, 4, 8 (`ssim_band_sum` through K3, `l1_band_sum`,
+`delta_depth_band_sum` on views 1 and 2), each K3 call held against the
+plain blur; the fwd+bwd time of one rank's band for pixel N in 1, 2, 4, 8
+and of one slab for gauss g in 1, 2, 4 by CUDA events with the profiler's
+device busy time; each virtual rank's peak memory for "primitive" against
+"tiles"; and the bytes each collective would move per step, computed from
+the shapes. Its K1-K3 launches are `launches_ranks`.
+run_bag writes the livo phase's streams as a ROS1 bag (Livox CustomMsg
+with float32 points and integer-ns offsets, IMU at 200 Hz, rgb8 Images)
+and runs `python -m gslivm_tpu_torch.examples.run_bag` on it on the card in
+a subprocess, with the livo phase's configuration: exit 0, every artifact,
+each pose in pose.txt within 1e-4 m of the livo phase's front-end position
+after the sweep that emitted the frame, ATE < 0.05 m; it prints the host ms
+to read and decode the bag by message type and wall_fps.
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
 launches in kernelcost and step_profile, and `launches_map`, their
-launches in the map loop, and `launches_livo`, their launches in the
-livo loop (0 for T1 and T2); K1, K2, K3 and T2 carry their
+launches in the map loop, `launches_livo`, their launches in the
+livo loop, and `launches_shard`, their launches in the one-rank sharded
+steps (0 for T1 and T2); K1, K2, K3 and T2 carry their
 registers and blocks per SM and say where their times before the redesign
 stand, which this script does not measure), and last {"ok": true, "device":
 {...}}. Any failure raises and exits non-zero; without CUDA the script
@@ -147,11 +181,35 @@ order, FMA allowed). T1 against its plain version, every
 variant: relative error <= 1e-5 per tile (f32 sums of 8,192 squares in
 another order). T2 against its plain version, every variant, rows C0-T:
 max abs deviation over max(|plain|, 1) per row <= 1e-3 (K1's gate:
-sequential compositing against the prefix product).
+sequential compositing against the prefix product). shard: the one-rank
+sharded step against train_step, loss within 1e-5 relative and .grad
+within 1e-3 of scale per parameter; the stitched bands and the folded
+slabs against the single render, rows C, D, A, T within 1e-3 of scale
+(K1's gate) plus, per pixel, fold_stop_bound times the largest splat
+colour (depth for D, 1 for A and T): the early stop fires per slab, so
+where a walk stopped the fold and the one-pass render drop different
+light, which that bound holds; the primitive gradients against the
+single-device ones within GRAD_FOLD_TOL (3e-3 of scale, set from readings:
+the largest in every sound run was 2.22e-3; a fold that skips T, run as a
+control, must land above it); the kernels' slab path against the plain
+versions of the same per-slab semantics, rows and gradients within 1e-3
+(K1's and K2's gates). K3 on the pixel ranks' loss bands (a band of
+ceil(H/N) rows plus the 5-row halo, for every band of every N in 1, 2, 4,
+8): each K3 call against blur_plain on the same input within 1e-5 of
+max(|plain|, 1) (K3's gate), and ssim_band_sum's value (1e-5 of
+max(|sum|, its element count)) against the same call with the plain
+blur, and its VJP no further from the float64 VJP than twice the plain
+f32 VJP's distance (or 1e-5 of scale: f32 rounding alone moves it by
+~1e-4 where flat regions cancel large cotangents); the
+band sums of SSIM, L1 and delta-depth add up to the full-frame sums
+within 1e-5 relative. run_bag:
+poses within 1e-4 m of the livo phase's (the bag holds float32 points and
+integer-ns times).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -202,6 +260,24 @@ LIVO_SWEEPS, LIVO_W, LIVO_H, LIVO_POINTS = 50, 640, 512, 24_000
 LIVO_ITERS = 10
 LIVO_ATE_MAX = 0.05  # the e2e floor (test_e2e_regression.py:211)
 LIVO_CHECKPOINT_ITERS = 10
+# the sharded step (shard): the train phase's state, full width; the per-rank
+# work of these meshes runs one rank after another on the card
+SHARD_MESHES = ((2, 2), (4, 1))
+SHARD_PIXEL_N = (1, 2, 4, 8)
+SHARD_GAUSS_G = (1, 2, 4)
+SHARD_BLOCK = (2, 2)            # RasterizeSettings' supertile, as in the train phase
+SHARD_MAX_INSTANCES = 1 << 20   # RasterizeSettings' budget, per band or slab
+SHARD_SLACK = 4.0               # sharded_train_step's exchange_slack default
+SHARD_FLOATS = 14               # xyz 3, f_dc 3, f_rest 0, scaling 3, rotation 4, opacity 1
+EXCHANGE_ROWS = 17              # 15 screen rows, the slab position, the occupied flag
+# the primitive gradients against the single-device step's (scale-relative):
+# the per-slab stop moves them deterministically, by 2.22e-3 at most in
+# every sound run of this phase on the bench scene (PERF.md section 6);
+# no bound is derived for them, so the gate sits above those readings and
+# a control (a fold that skips T) must exceed it
+GRAD_FOLD_TOL = 3e-3
+# the ROS-bag entry point (run_bag): the livo phase's streams written as a bag
+BAG_TOPICS = {"imu": "/livox/imu", "lidar": "/livox/lidar", "image": "/camera/image"}
 
 
 def emit(phase: str, **fields):
@@ -734,7 +810,7 @@ def livo_serial(stream, cfg, dev, profiled, counters):
     for c in counters.values():
         c.launches = 0
     capacity, growths, ingest, staged, losses_, events = [mapper.params.capacity], [], [], [], [], []
-    stages, est, gt, n_frames = [], [], [], 0
+    stages, est, gt, n_frames, per_sweep = [], [], [], 0, []
     t_frontend = t_mapper = t_probe = 0.0
     t_loop = time.perf_counter()
     for sweep in stream.sweeps:
@@ -743,6 +819,7 @@ def livo_serial(stream, cfg, dev, profiled, counters):
         frames = push_sweep(fe, sweep)
         t_frontend += time.perf_counter() - t0
         stages.append(dict(fe.stage_seconds))
+        per_sweep.append(len(frames))
         est.append(fe.pose[1])
         gt.append(sweep.gt_displacement)
         n_frames += len(frames)
@@ -796,7 +873,8 @@ def livo_serial(stream, cfg, dev, profiled, counters):
                    "bootstrap_points": MAP_BOOTSTRAP, "iters_per_frame": LIVO_ITERS},
         "native_voxel_map": native.available(),
         "vmap": type(fe.odometry.vmap).__name__,
-        "frames_emitted": n_frames, "color_map_points": len(fe.color_map),
+        "frames_emitted": n_frames, "frames_per_sweep": per_sweep,
+        "color_map_points": len(fe.color_map),
         "tracks": len(fe.tracker.track_idx), "vio_time_td": fe.vio_state.time_td,
         "frontend_ms_per_sweep_median": float(np.median([sum(st.values()) for st in stages]) * 1e3),
         "frontend_ms_per_sweep_max": float(np.max([sum(st.values()) for st in stages]) * 1e3),
@@ -960,6 +1038,636 @@ def run_synthetic_check(dev):
     assert proc.returncode == 0, out
     assert {"map.ply", "rgb_map.pcd", "pose.txt", "cfg_args", "log_time.txt",
             "training"} <= set(listing) and pngs, out
+    return out
+
+
+def collective_bytes(g: int, n: int, renderer: str, n_gauss: int, cams, block) -> dict:
+    """Bytes one rank of a (g, n) mesh sends and receives by each collective
+    of one sharded_train_step (computed from shapes, not timed): all_gather
+    receives the (size-1) other blocks; all_reduce is counted as a ring,
+    2 (size-1)/size of the tensor each way; the exchange's all_to_all moves
+    the (g-1) boxes of budget rows out and in, and back in backward."""
+    from gslivm_tpu_torch.ops.rasterize_reference import tile_grid
+    from gslivm_tpu_torch.parallel import primitive, sharding
+
+    def ring(size, nbytes):
+        return 2 * (size - 1) / size * nbytes
+
+    shard = n_gauss // g
+    out = {"param_grad_all_reduce_pixel": ring(n, shard * SHARD_FLOATS * 4)}
+    for cam in cams:
+        br = sharding.band_rows_for(cam, n, block)
+        band_px = br * 16 * block[1] * tile_grid(cam.width, cam.height)[0] * 16
+        rows = 5 if renderer == "tiles" else 6
+        add = {"image_all_gather_pixel": (n - 1) * rows * band_px * 4,
+               "image_cotangent_all_reduce_pixel": ring(n, n * rows * band_px * 4)}
+        if renderer == "tiles":
+            add["param_all_gather_gauss"] = (g - 1) * shard * SHARD_FLOATS * 4 / len(cams)
+            add["param_cotangent_all_reduce_gauss"] = ring(
+                g, n_gauss * SHARD_FLOATS * 4) / len(cams)
+        else:
+            box = primitive.default_budget(shard, g, SHARD_SLACK)
+            add["depth_key_all_gather_gauss"] = (g - 1) * shard * 4
+            add["exchange_all_to_all_gauss"] = 2 * 2 * (g - 1) * box * EXCHANGE_ROWS * 4
+            add["partial_all_gather_gauss"] = (g - 1) * 6 * band_px * 4
+            add["partial_cotangent_all_reduce_gauss"] = ring(g, g * 6 * band_px * 4)
+        for k, v in add.items():
+            out[k] = out.get(k, 0.0) + v
+    out = {k: v for k, v in out.items() if v}
+    out["total"] = sum(out.values())
+    return out
+
+
+def band_loss_parity(view, gt, cams, renders):
+    """The pixel ranks' loss bands on the card at full width, as the
+    sharded loss calls them: for every band p of every N in SHARD_PIXEL_N
+    (ceil(H/N) rows from p*ceil(H/N)), ssim_band_sum of the view [3, H, W]
+    against gt[0] (its five blurs one K3 launch of [15, rows + 10, W], and
+    one more in its VJP), l1_band_sum, and delta_depth_band_sum of views 1
+    and 2 (rows D and A of `renders`). Every K3 call is held against
+    blur_plain on the same input (max abs over max(|plain|, 1) <= 1e-5:
+    k3_parity's gate, scaled because the VJP blurs cotangents far above
+    1), and ssim_band_sum's value and VJP against the same call with the
+    plain blur (the value within 1e-5 of max(|sum|, its element count),
+    SSIM lying in [-1, 1]); the VJP, whose f32 rounding alone reaches
+    ~1e-4 of scale, no further from the float64 VJP (plain blur) than
+    twice the plain f32 path's distance, or 1e-5 of scale; each loss's
+    band sums add up to its full-frame sum (1e-5 relative)."""
+    import torch
+
+    from gslivm_tpu_torch.models import training
+    from gslivm_tpu_torch.ops import blur, losses
+
+    H, W = view.shape[1:]
+    target = gt[0]
+    impl = blur._blur_impl
+    calls = []
+
+    def checked(x, taps):  # K3, and its plain version on the same input
+        out = impl(x, taps)
+        plain = blur.blur_plain(x, taps)
+        calls.append((tuple(x.shape), float((out - plain).abs().max())
+                      / max(float(plain.abs().max()), 1.0)))
+        return out
+
+    def plain_many(x, taps):
+        return blur.blur_plain(x, tuple(float(t) for t in taps))
+
+    def ssim_and_vjp(lo, n, dtype=torch.float32):
+        x = view.to(dtype).requires_grad_(True)
+        v = losses.ssim_band_sum(x, target.to(dtype), lo, n)
+        return float(v.detach()), torch.autograd.grad(v, x)[0]
+
+    depth = [r[3, :H, :W] for r in renders[1:3]]
+    acc = [r[4, :H, :W] for r in renders[1:3]]
+    with torch.no_grad():
+        full = {"ssim": float(losses.ssim(view, target)) * view.numel(),
+                "l1": float(losses.l1_loss(view, target)) * view.numel(),
+                "delta": float(training.delta_depth_loss(
+                    depth[0], acc[0], cams[1], depth[1], acc[1], cams[2])) * H * W}
+    out = {"per_n": {}, "value_rel_err": 0.0, "vjp_scaled_err": 0.0, "vjp_f64_err": 0.0,
+           "vjp_plain_f64_err": 0.0}
+    for n_pixel in SHARD_PIXEL_N:
+        rows = -(-H // n_pixel)
+        sums = {"ssim": 0.0, "l1": 0.0, "delta": 0.0}
+        for p in range(n_pixel):
+            blur._blur_impl = checked
+            try:
+                v, g = ssim_and_vjp(p * rows, rows)
+            finally:
+                blur._blur_impl = impl
+            losses.blur_many = plain_many
+            try:
+                v_plain, g_plain = ssim_and_vjp(p * rows, rows)
+                _, g64 = ssim_and_vjp(p * rows, rows, torch.float64)
+            finally:
+                losses.blur_many = blur.blur_many
+            # SSIM lies in [-1, 1]: the sum's scale is at least its element count
+            n_el = view.shape[0] * min(rows, H - p * rows) * W
+            out["value_rel_err"] = max(out["value_rel_err"],
+                                       abs(v - v_plain) / max(abs(v_plain), n_el))
+            out["vjp_scaled_err"] = max(out["vjp_scaled_err"], scaled_err(g, g_plain))
+            out["vjp_f64_err"] = max(out["vjp_f64_err"], scaled_err(g.double(), g64))
+            out["vjp_plain_f64_err"] = max(out["vjp_plain_f64_err"],
+                                           scaled_err(g_plain.double(), g64))
+            with torch.no_grad():
+                sums["ssim"] += v
+                sums["l1"] += float(losses.l1_band_sum(view, target, p * rows, rows))
+                sums["delta"] += float(training.delta_depth_band_sum(
+                    depth[0], acc[0], cams[1], depth[1], acc[1], cams[2], p * rows, rows))
+        out["per_n"][n_pixel] = {
+            "band_rows": rows, "k3_shape": [15, rows + 10, W],
+            "partition_rel_err": {k: abs(sums[k] - full[k]) / abs(full[k]) for k in sums}}
+    out["k3_calls"] = len(calls)
+    out["k3_max_scaled_err"] = max(e for _, e in calls)
+    out["k3_shapes"] = sorted({shape for shape, _ in calls}, reverse=True)
+    out["tol"] = 1e-5
+    assert out["k3_calls"] == 2 * sum(SHARD_PIXEL_N), out  # a forward and a VJP a band
+    assert out["k3_max_scaled_err"] <= 1e-5, out
+    assert out["value_rel_err"] <= 1e-5, out
+    # the VJP sums blurred cotangents near 1/C2 that cancel where the image
+    # is flat, so f32 rounding alone moves it by ~1e-4 of scale: K3's path
+    # is held to the plain f32 path's own distance from float64
+    assert out["vjp_f64_err"] <= max(2.0 * out["vjp_plain_f64_err"], 1e-5), out
+    assert all(e <= 1e-5 for r in out["per_n"].values()
+               for e in r["partition_rel_err"].values()), out
+    return out
+
+
+def shard_ranks(params, cams, gt, dev, profiled, counters):
+    """The per-rank work of the SHARD_MESHES, one rank after another on one
+    card (no collective runs): each pixel rank's band of each view (tiles:
+    the whole map; primitive: each depth slab's band, the slabs cut by
+    split_depth_slabs and folded in depth order by fold_partials),
+    stitched, against the single-device render (rows C, D, A, T: K1's gate
+    plus, for the slabs, the stop bound) and the per-gaussian gradients of
+    a fixed loss (random weights on C, A and T) against the single-device
+    ones (tiles 1e-3 of scale, primitive GRAD_FOLD_TOL, with the no-T
+    control above it); then band_loss_parity on the stitched view 0. Then
+    fwd+bwd times of one rank (a band of each SHARD_PIXEL_N, a slab of each
+    SHARD_GAUSS_G) by CUDA events with the profiler's device busy time,
+    each virtual rank's peak memory, and the
+    collective bytes. `counters` count every launch here."""
+    import torch
+
+    from gslivm_tpu_torch.ops import rasterize_reference, rasterize_tiles
+    from gslivm_tpu_torch.ops.rasterize_reference import tile_grid
+    from gslivm_tpu_torch.parallel import primitive, sharding
+
+    for c in counters.values():
+        c.launches = 0
+    W, H = cams[0].width, cams[0].height
+    block = SHARD_BLOCK
+    gx, gy = tile_grid(W, H)
+    sgrid_y = -(-gy // block[1])
+    Hp, Wp = sgrid_y * 16 * block[1], -(-gx // block[0]) * 16 * block[0]
+    n_gauss = params.capacity
+    with torch.no_grad():
+        base = [params.xyz, params.get_scaling(), params.get_rotation(),
+                params.get_opacity()[:, 0], params.get_features()]
+    mask = params.active_mask()
+    rng = np.random.default_rng(5)
+    weights = [torch.as_tensor(rng.uniform(0.5, 1.5, (6, Hp, Wp)), dtype=torch.float32,
+                               device=dev) for _ in cams]
+    for w in weights:
+        w[3] = 0.0  # the sharded loss stops the depth gradient
+
+    def leaves(rows=slice(None)):
+        return [t[rows].detach().clone().requires_grad_(True) for t in base]
+
+    def pre_of(args, cam, rows=slice(None)):
+        return rasterize_reference.preprocess(*args, cam, active_mask=mask[rows])
+
+    def band(pre, n, p):
+        br = sharding.band_rows_for(cams[0], n, block)
+        img, binned, _ = rasterize_tiles.render_tiles_raw(
+            pre, W, H, depth_grad=False, max_instances=SHARD_MAX_INSTANCES,
+            block_x=block[0], block_y=block[1], contrib_stats=False, band_rows=br,
+            band_start=p * br)
+        assert int(binned.overflow) == 0
+        return img[:6]
+
+    def slab_band(slab, n, p):
+        br = sharding.band_rows_for(cams[0], n, block)
+        part, binned = primitive.render_slab_band(
+            slab, W, H, br, p * br, max_instances=SHARD_MAX_INSTANCES, block=block)
+        assert int(binned.overflow) == 0
+        return part
+
+    def render(renderer, g, n, args, cam, t_one=None, fold=primitive.fold_partials):
+        """The stitched [6, Hp, Wp] rows of one view, and for "primitive" the
+        deviation each row may take from the one-pass render whose T row is
+        t_one: fold_stop_bound times the largest splat colour, depth, or 1."""
+        pre = pre_of(args, cam)
+        if renderer == "tiles":  # every gauss row renders the same bands
+            return torch.cat([band(pre, n, p) for p in range(n)], dim=1)[:, :Hp], None
+        slabs, overflow = primitive.split_depth_slabs(
+            pre, g, primitive.default_budget(n_gauss // g, g, SHARD_SLACK))
+        assert int(overflow) == 0
+        bands, bounds = [], []
+        for p in range(n):
+            parts = torch.stack([slab_band(s, n, p) for s in slabs])
+            bands.append(fold(parts))
+            if t_one is not None:
+                t = torch.ones_like(parts[0, 5])
+                rows = t_one[p * t.shape[0]:(p + 1) * t.shape[0]]
+                t[:rows.shape[0]] = rows
+                bounds.append(primitive.fold_stop_bound(parts, t))
+        if t_one is None:
+            return torch.cat(bands, dim=1)[:, :Hp], None
+        with torch.no_grad():
+            valid = pre.valid
+            c, d = float(pre.color[valid].max()), float(pre.depth[valid].max())
+        bound = torch.cat(bounds, dim=0)[:Hp]
+        allow = torch.stack([bound * peak for peak in (c, c, c, d, 1.0, 1.0)])
+        return torch.cat(bands, dim=1)[:, :Hp], allow
+
+    def fold_without_t(parts):
+        """The control: slabs summed with no transmittance between them."""
+        return torch.cat([parts[:, :5].sum(dim=0), parts[:, 5].prod(dim=0)[None]], dim=0)
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        """K1 and K2 replaced by their plain versions (the same per-slab
+        semantics), for the reference of the kernels' slab path."""
+        k1, k2 = rasterize_tiles.composite_tiles, rasterize_tiles.composite_tiles_bwd
+
+        def bwd(inst, start, cnt, g_tiles, fwd, ckpt, cfg, n, depth_grad=True):
+            return rasterize_tiles.scatter_instance_grads(
+                rasterize_tiles.composite_tiles_bwd_plain(inst, start, cnt, g_tiles, fwd, ckpt,
+                                                          cfg, depth_grad), n, depth_grad)
+        rasterize_tiles.composite_tiles = rasterize_tiles.composite_tiles_plain
+        rasterize_tiles.composite_tiles_bwd = bwd
+        try:
+            yield
+        finally:
+            rasterize_tiles.composite_tiles, rasterize_tiles.composite_tiles_bwd = k1, k2
+
+    def row_errs(imgs, refs, allows=None):
+        """Per row group, max |a - b| over max(|b|, 1); with allows, the
+        largest ratio of |a - b| to the pixel's allowed deviation plus
+        1e-3 of that scale (<= 1 passes)."""
+        out = {}
+        for name, r in (("C", slice(0, 3)), ("D", 3), ("A", 4), ("T", 5)):
+            worst = 0.0
+            for i, (a, b) in enumerate(zip(imgs, refs)):
+                scale = max(float(b[r].abs().max()), 1.0)
+                d = (a[r].detach() - b[r]).abs()
+                if allows is None:
+                    worst = max(worst, float(d.max()) / scale)
+                else:
+                    worst = max(worst, float((d / (allows[i][r] + 1e-3 * scale)).max()))
+            out[name] = worst
+        return out
+
+    def loss_of(imgs):
+        return sum((img * w).sum() for img, w in zip(imgs, weights))
+
+    # the single-device render and gradients
+    args = leaves()
+    single = [band(pre_of(args, cam), 1, 0) for cam in cams]
+    g_single = torch.autograd.grad(loss_of(single), args)
+    single = [s.detach() for s in single]
+    del args
+
+    names = ("means", "scales", "quats", "opacities", "shs")
+    parity = {}
+    for g, n in SHARD_MESHES:
+        for renderer in ("tiles", "primitive"):
+            args = leaves()
+            out = [render(renderer, g, n, args, cam, ref[5]) for cam, ref in zip(cams, single)]
+            imgs = [o[0] for o in out]
+            grads = torch.autograd.grad(loss_of(imgs), args)
+            r = {"grad_scaled_err": {k: scaled_err(a, b)
+                                     for k, a, b in zip(names, grads, g_single)},
+                 "rows_scaled_err": row_errs(imgs, single)}
+            if renderer == "tiles":
+                if (g, n) == SHARD_MESHES[0]:
+                    stitched_view = imgs[0][:3, :H, :W].detach()
+            else:
+                allows = [o[1] for o in out]
+                r["rows_bound_ratio"] = row_errs(imgs, single, allows)
+                r["stopped_pixel_share"] = float(sum(
+                    (a[4] > 0).float().mean() for a in allows)) / len(cams)
+                del allows
+                ctl_args = leaves()
+                ctl = [render(renderer, g, n, ctl_args, cam, fold=fold_without_t)[0]
+                       for cam in cams]
+                r["grad_scaled_err_control_no_t"] = {
+                    k: scaled_err(a, b) for k, a, b in zip(
+                        names, torch.autograd.grad(loss_of(ctl), ctl_args), g_single)}
+                del ctl, ctl_args
+                with plain_kernels():
+                    plain_args = leaves()
+                    plain = [render(renderer, g, n, plain_args, cam)[0] for cam in cams]
+                    g_plain = torch.autograd.grad(loss_of(plain), plain_args)
+                plain = [x.detach() for x in plain]
+                r["rows_scaled_err_plain"] = row_errs(imgs, plain)
+                r["grad_scaled_err_plain"] = {k: scaled_err(a, b)
+                                              for k, a, b in zip(names, grads, g_plain)}
+                del plain, g_plain, plain_args
+            parity[f"{renderer} {g}x{n}"] = r
+            del args, out, imgs, grads
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        """fwd+bwd ms by CUDA events (median of 3 after a warm-up), and the
+        profiler's device busy time of one more call."""
+        fn()
+        ms = []
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        prof = profiled(fn)
+        return {"ms": float(np.median(ms)), "device_busy_ms": prof["device_busy_ms"],
+                "launches": prof["launches"]}
+
+    cam = cams[0]
+    args = leaves()
+
+    def band_work(n, p):
+        """A tiles rank's work on view 0: preprocess the whole map, render
+        band p of n, backward a fixed loss of the band to the map."""
+        rows = sharding.band_rows_for(cam, n, block) * 16 * block[1]
+        w = torch.zeros((6, rows, Wp), device=dev)
+        piece = weights[0][:, p * rows:(p + 1) * rows]
+        w[:, :piece.shape[1]] = piece
+
+        def fn():
+            img = band(pre_of(args, cam), n, p)
+            torch.autograd.grad((img * w).sum(), args)
+        return fn
+
+    bands_ms = {}
+    for n in SHARD_PIXEL_N:
+        per = [timed(band_work(n, p)) for p in range(n)]
+        bands_ms[n] = {"band_ms": [r["ms"] for r in per],
+                       "busy_ms": [r["device_busy_ms"] for r in per],
+                       "max_band_ms": max(r["ms"] for r in per)}
+    slabs_ms = {}
+    for g in SHARD_GAUSS_G:
+        with torch.no_grad():
+            slab_rows = [primitive._pre_to_rows(s) for s in
+                         primitive.split_depth_slabs(pre_of(args, cam), g)[0]]
+        per = []
+        for k, rows in enumerate(slab_rows):
+            shard_args = leaves(slice(k * n_gauss // g, (k + 1) * n_gauss // g))
+            leaf = rows.detach().clone().requires_grad_(True)
+
+            def fn(shard_args=shard_args, leaf=leaf, k=k):
+                # the rank's preprocess of its shard, and its slab over the image
+                pre = pre_of(shard_args, cam, slice(k * n_gauss // g, (k + 1) * n_gauss // g))
+                part = slab_band(primitive._rows_to_pre(leaf), 1, 0)
+                loss = (part * weights[0]).sum() + primitive._pre_to_rows(pre)[:10].sum()
+                torch.autograd.grad(loss, [leaf, *shard_args])
+            per.append(timed(fn))
+        slabs_ms[g] = {"slab_ms": [r["ms"] for r in per],
+                       "busy_ms": [r["device_busy_ms"] for r in per],
+                       "max_slab_ms": max(r["ms"] for r in per)}
+        del slab_rows
+    del args
+    torch.cuda.empty_cache()
+
+    # each virtual rank's peak memory, three views fwd+bwd, above its inputs
+    memory = {}
+    for g, n in SHARD_MESHES:
+        for renderer in ("tiles", "primitive"):
+            peaks = []
+            for k in range(g):
+                for p in range(n):
+                    rows = slice(k * n_gauss // g, (k + 1) * n_gauss // g)
+                    if renderer == "tiles":
+                        inputs = leaves()
+                    else:
+                        inputs = leaves(rows)
+                        with torch.no_grad():
+                            full = leaves()
+                            slab_in = [primitive._pre_to_rows(primitive.split_depth_slabs(
+                                pre_of(full, c), g)[0][k]).detach().requires_grad_(True)
+                                for c in cams]
+                            del full
+                    torch.cuda.synchronize()
+                    before = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    if renderer == "tiles":
+                        imgs = [band(pre_of(inputs, c), n, p) for c in cams]
+                        loss = sum(i.sum() for i in imgs)
+                        torch.autograd.grad(loss, inputs)
+                    else:
+                        pres = [pre_of(inputs, c, rows) for c in cams]
+                        parts = [slab_band(primitive._rows_to_pre(s), n, p) for s in slab_in]
+                        gathered = [torch.empty((g,) + tuple(pt.shape), device=dev)
+                                    for pt in parts]  # the partials' all_gather
+                        loss = (sum(pt.sum() for pt in parts)
+                                + sum(primitive._pre_to_rows(q)[:10].sum() for q in pres))
+                        torch.autograd.grad(loss, [*inputs, *slab_in])
+                        del pres, parts, gathered
+                        del slab_in
+                    torch.cuda.synchronize()
+                    peaks.append((torch.cuda.max_memory_allocated() - before) / 1e9)
+                    del inputs
+            memory[f"{renderer} {g}x{n}"] = {"rank_peak_gb": peaks, "max_gb": max(peaks)}
+    torch.cuda.empty_cache()
+
+    bytes_ = {f"{r} {g}x{n}": collective_bytes(g, n, r, n_gauss, cams, block)
+              for g, n in SHARD_MESHES for r in ("tiles", "primitive")}
+    for name, r in parity.items():
+        # K1/K2's gates against the single render and, for the slabs, against
+        # the plain versions of the same per-slab semantics; the slabs'
+        # rows against the single render within the stop bound as well
+        if name.startswith("tiles"):
+            assert max(r["rows_scaled_err"].values()) <= 1e-3, (name, r)
+            assert max(r["grad_scaled_err"].values()) <= 1e-3, (name, r)
+            continue
+        assert max(r["rows_bound_ratio"].values()) <= 1.0, (name, r)
+        assert max(r["rows_scaled_err_plain"].values()) <= 1e-3, (name, r)
+        assert max(r["grad_scaled_err_plain"].values()) <= 1e-3, (name, r)
+        assert max(r["grad_scaled_err"].values()) <= GRAD_FOLD_TOL, (name, r)
+        assert max(r["grad_scaled_err_control_no_t"].values()) > GRAD_FOLD_TOL, (name, r)
+    band_losses = band_loss_parity(stitched_view, gt, cams, single)
+    return {"parity": parity, "tol": 1e-3, "grad_fold_tol": GRAD_FOLD_TOL,
+            "band_losses": band_losses, "band_fwd_bwd": bands_ms,
+            "slab_fwd_bwd": slabs_ms, "rank_peak_memory": memory,
+            "collective_bytes_per_step": bytes_,
+            "launches_ranks": {k: c.launches for k, c in counters.items()}}
+
+
+
+def shard_step_check(params, cams, gt, simi, dev):
+    """sharded_train_step in a world of one NCCL rank, run by multihost_demo
+    in a subprocess as a user runs it, for "tiles" and "primitive" from the
+    train phase's state, against train_step from the same state: loss within
+    1e-5 relative, each parameter's .grad within 1e-3 of its scale (K2's
+    atomics vary from run to run), overflow 0; the rank counts its K1/K2/K3
+    launches around each step. With two or more cards, a real NCCL world of
+    them takes the same steps against the same gates."""
+    import torch
+
+    from gslivm_tpu_torch.models import training
+    from gslivm_tpu_torch.models.gaussian_model import GaussianParams
+    from gslivm_tpu_torch.ops.rasterize import RasterizeSettings
+    from gslivm_tpu_torch.parallel import sharding
+    from gslivm_tpu_torch.tools import multihost_demo
+
+    ref = GaussianParams(*[getattr(params, f).detach().clone() for f in sharding.FIELDS],
+                         n_active=int(params.n_active))
+    m = training.train_step(ref, training.make_optimizer(ref), cams, gt, simi,
+                            settings=RasterizeSettings(
+                                max_instances=SHARD_MAX_INSTANCES, block_x=SHARD_BLOCK[0],
+                                block_y=SHARD_BLOCK[1]), n_history_pairs=1)
+    want_loss = float(m.loss)
+    want = {f: getattr(ref, f).grad for f in sharding.FIELDS if getattr(ref, f).numel()}
+
+    def world(nproc, axes, tmp):
+        state, out = os.path.join(tmp, "state.pt"), os.path.join(tmp, f"out{nproc}.pt")
+        if not os.path.exists(state):
+            multihost_demo.save_state(state, params, cams, gt, simi)
+        cmd = [sys.executable, "-m", "gslivm_tpu_torch.tools.multihost_demo",
+               "--nproc", str(nproc), "--gauss-axis", axes,
+               "--renderer", f"tiles,primitive:{SHARD_SLACK}",
+               "--state", state, "--out", out, "--history-pairs", "1",
+               "--block", ",".join(map(str, SHARD_BLOCK)),
+               "--max-instances", str(SHARD_MAX_INSTANCES),
+               "--timeout", "300", "--device", str(dev)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        steps = {}
+        for key, r in torch.load(out, weights_only=True).items():
+            steps[f"{key[1].partition(':')[0]} {key[0]}x{nproc // key[0]}"] = {
+                "loss": r["metrics"]["loss"], "overflow": r["metrics"]["overflow"],
+                "num_instances": r["metrics"]["num_instances"], "step_s": r["seconds"],
+                "launches": r["launches"],
+                "loss_rel_err": abs(r["metrics"]["loss"] - want_loss) / abs(want_loss),
+                "grad_scaled_err": {f: scaled_err(r["grads"][f].to(dev), w)
+                                    for f, w in want.items()}}
+        return {"seconds": seconds, "steps": steps}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one = world(1, "1", tmp)
+        count = torch.cuda.device_count()
+        multi = (world(min(count, 4), f"1,{min(count, 4)}", tmp) if count >= 2
+                 else "1 card")
+    out = {"want_loss": want_loss, "one_rank_nccl": one, "multi_rank": multi,
+           "loss_rtol": 1e-5, "grad_tol": 1e-3}
+    for res in [one] + ([multi] if isinstance(multi, dict) else []):
+        for name, r in res["steps"].items():
+            assert r["overflow"] == 0 and r["loss_rel_err"] <= 1e-5, (name, r)
+            assert max(r["grad_scaled_err"].values()) <= 1e-3, (name, r)
+    launches = {k: sum(r["launches"][k] for r in one["steps"].values())
+                for k in ("K1", "K2", "K3")}
+    # a step: a K1 and a K2 per view, a forward and a backward K3 per view
+    assert all(r["launches"] == {"K1": 3, "K2": 3, "K3": 6} for r in one["steps"].values()), one
+    return out, launches
+
+
+def write_dolly_bag(stream, path: str) -> dict:
+    """The livo phase's streams as a ROS1 bag, in the order the livo phase
+    pushes them: the static IMU, then per sweep its Livox CustomMsg (float32
+    points, offsets in integer ns, every tag a first return), its IMU
+    samples and its rgb8 Image."""
+    from gslivm_tpu_torch.frontend import rosbag
+
+    def messages():
+        for t, gyr, acc in stream.init_imu:
+            yield (BAG_TOPICS["imu"], "sensor_msgs/Imu", t, rosbag.encode_imu(t, gyr, acc))
+        for sw in stream.sweeps:
+            li = sw.lidar
+            yield (BAG_TOPICS["lidar"], "livox_ros_driver/CustomMsg", li.t_begin,
+                   rosbag.encode_livox_custom(li.t_begin, li.xyz, li.rel_time))
+            for t, gyr, acc in sw.imu:
+                yield (BAG_TOPICS["imu"], "sensor_msgs/Imu", t, rosbag.encode_imu(t, gyr, acc))
+            yield (BAG_TOPICS["image"], "sensor_msgs/Image", sw.image_time,
+                   rosbag.encode_image(sw.image_time, sw.image))
+
+    t0 = time.perf_counter()
+    n = rosbag.write_bag(path, messages())
+    return {"messages": n, "bytes": os.path.getsize(path),
+            "write_seconds": time.perf_counter() - t0}
+
+
+def dolly_dataset_yaml(path: str, stream):
+    """A dataset yaml of the dolly's camera and topics (identity extrinsics,
+    no distortion), whose overrides are livo_config()'s."""
+    with open(path, "w") as f:
+        f.write(f"""dataset:
+    lidar_topic: "{BAG_TOPICS['lidar']}"
+    imu_topic: "{BAG_TOPICS['imu']}"
+    image_topic: "{BAG_TOPICS['image']}"
+    lidar_type: livox
+    image_width: {LIVO_W}
+    image_height: {LIVO_H}
+    image_resize_ratio: 1.0
+    fx: {float(stream.fx)!r}
+    fy: {float(stream.fy)!r}
+    cx: {float(stream.cx)!r}
+    cy: {float(stream.cy)!r}
+    dist_k1: 0.0
+    dist_k2: 0.0
+    dist_p1: 0.0
+    dist_p2: 0.0
+    dist_k3: 0.0
+    t_imu_lidar: "0,0,0"
+    R_imu_lidar: "1,0,0,0,1,0,0,0,1"
+    t_imu_camera: "0,0,0"
+    R_imu_camera: "1,0,0,0,1,0,0,0,1"
+gp:
+    grid: {MAP_GRID}
+odometry:
+    init_num_frames: 2
+    voxel_size: 0.05
+    sample_voxel_size: 0.6
+    init_voxel_size: 0.05
+    init_sample_voxel_size: 0.6
+icp:
+    min_number_neighbors: 8
+    max_num_residuals: 300
+    size_voxel_map: 0.5
+    num_iters_icp: 6
+""")
+
+
+def run_bag_check(bag: str, ds: str, common: str, want, gt_positions, dev):
+    """examples/run_bag on the card in a subprocess, as a user runs it:
+    exit 0, every artifact, each pose in pose.txt equal to the livo phase's
+    front-end position after the sweep that emitted the frame (within 1e-4
+    m: the bag holds the points as float32 and times as integer ns; 'text_
+    equal_rows' counts the rows whose formatted text is identical), and the
+    ATE of those poses < LIVO_ATE_MAX."""
+    from gslivm_tpu_torch.config import load_config, load_yaml
+    from gslivm_tpu_torch.utils.outputs import append_tum_pose
+
+    raw = load_yaml(ds)
+    cfg = load_config({k: v for k, v in raw.items() if k != "dataset"}, load_yaml(common))
+    assert cfg == livo_config(), "the bag run's configuration is not the livo phase's"
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "gslivm_tpu_torch.examples.run_bag", bag,
+               "--dataset", ds, "--common", common, "--out", out, "--device", str(dev)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        listing = sorted(os.listdir(out))
+        pngs = os.listdir(os.path.join(out, "training")) \
+            if os.path.isdir(os.path.join(out, "training")) else []
+        pose_file = os.path.join(out, "pose.txt")
+        rows = np.loadtxt(pose_file, ndmin=2) if os.path.exists(pose_file) else np.zeros((0, 8))
+        lines = open(pose_file).read().splitlines() if os.path.exists(pose_file) else []
+        ref_file = os.path.join(out, "livo_pose.txt")
+        for t, p in zip(rows[:, 0], want):
+            append_tum_pose(ref_file, t, p, [0.0, 0.0, 0.0, 1.0])
+        ref_lines = open(ref_file).read().splitlines() if len(rows) else []
+    stdout = proc.stdout.splitlines()
+
+    def line(prefix):
+        ln = next((x for x in stdout if x.startswith(prefix)), None)
+        return json.loads(ln[len(prefix):]) if ln else None
+
+    got = rows[:, 1:4]
+    n = min(len(got), len(want))
+    dev_m = float(np.abs(got[:n] - want[:n]).max()) if n else None
+    ate = float(np.sqrt(np.mean(np.sum((got - gt_positions[:len(got)]) ** 2, axis=1)))) \
+        if len(got) else None
+    out = {"command": " ".join(["python", *cmd[1:3], "<bag>", "--dataset", "<yaml>",
+                                "--common", "<empty yaml>", "--out", "<tmp>", *cmd[-2:]]),
+           "returncode": proc.returncode, "seconds": seconds, "artifacts": listing,
+           "training_pngs": len(pngs), "poses": len(got), "livo_frames": len(want),
+           "max_pose_deviation_m": dev_m, "pose_tol_m": 1e-4,
+           "text_equal_rows": sum(a.split()[1:4] == b.split()[1:4]
+                                  for a, b in zip(lines, ref_lines)),
+           "ate_m": ate, "ate_max_m": LIVO_ATE_MAX,
+           "bag": line("bag: "), "pipeline": line("pipeline: "),
+           "eval": next((x for x in stdout if x.startswith("eval:")), None),
+           "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
+    assert proc.returncode == 0, out
+    assert {"map.ply", "rgb_map.pcd", "pose.txt", "log_time.txt", "training"} <= set(listing) \
+        and pngs, out
+    assert len(got) == len(want) and dev_m <= 1e-4, out
+    assert ate < LIVO_ATE_MAX, out
     return out
 
 
@@ -1513,11 +2221,35 @@ def main() -> int:
     emit("livo", stream_seconds=stream_s, **livo_fields, overlap=overlap,
          overlap_positions_equal=same_poses)
     assert same_poses  # the front end is deterministic whatever the mapper does
+    bag_dir = tempfile.TemporaryDirectory()
+    bag = os.path.join(bag_dir.name, "dolly.bag")
+    bag_written = write_dolly_bag(stream, bag)
+    dolly_dataset_yaml(os.path.join(bag_dir.name, "dolly.yaml"), stream)
+    open(os.path.join(bag_dir.name, "empty.yaml"), "w").close()
+    frames_of = [i for i, k in enumerate(livo_fields["frames_per_sweep"]) for _ in range(k)]
+    bag_want = est[frames_of]
+    bag_gt = np.asarray([stream.sweeps[i].gt_displacement for i in frames_of])
     del stream
     emit("checkpoint", **checkpoint_check(livo_mapper, livo_cfg, dev))
     del livo_mapper
     torch.cuda.empty_cache()
     emit("run_synthetic", **run_synthetic_check(dev))
+
+    # ---- shard: the sharded train step at full width -----------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_fields, shard_launches = shard_step_check(tparams, cams, gt, simi, dev)
+    rank_fields = shard_ranks(tparams, cams, gt, dev, profiled, counters)
+    emit("shard", seconds=time.perf_counter() - t0, gaussians=tparams.capacity,
+         views=len(cams), width=WIDTH, height=HEIGHT, block=list(SHARD_BLOCK),
+         launches=shard_launches, **step_fields, ranks=rank_fields)
+    torch.cuda.empty_cache()
+
+    # ---- run_bag: the ROS-bag entry point on the livo phase's streams ------
+    emit("run_bag", bag_file=bag_written, **run_bag_check(
+        bag, os.path.join(bag_dir.name, "dolly.yaml"),
+        os.path.join(bag_dir.name, "empty.yaml"), bag_want, bag_gt, dev))
+    bag_dir.cleanup()
 
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
@@ -1583,6 +2315,10 @@ def main() -> int:
     ]
     for row, key in zip(table, ("K1", "K2", "K3")):
         row["launches_tools"] = tool_launches[key]
+        row["launches_shard"] = shard_launches[key]
+        row["launches"] += shard_launches[key]
+    for row in table[3:]:
+        row["launches_shard"] = 0
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,5 @@
 """Host-side front end of the port: the voxel-GP map, the synthetic data
 source, and the LIVO front end (sensors, ESKF + plane-ICP odometry, VIO,
-`livo.LivoFrontend`), own copies of gslivm_tpu/frontend/*.py; `vision`
-stands in for the OpenCV calls of the image path."""
+`livo.LivoFrontend`) and the ROS-bag reader (`rosbag`), own copies of
+gslivm_tpu/frontend/*.py; `vision` stands in for the OpenCV calls of the
+image path."""

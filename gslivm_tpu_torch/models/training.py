@@ -317,6 +317,27 @@ def delta_depth_loss(depth_a, acc_a, cam_a: Camera,
     return torch.abs(inv_w * mask - inv_ref * mask).mean()
 
 
+def delta_depth_band_sum(depth_a, acc_a, cam_a: Camera,
+                         depth_b, acc_b, cam_b: Camera,
+                         row_lo: int, n_rows: int) -> torch.Tensor:
+    """SUM of the delta-depth gap over output rows [row_lo, row_lo+n_rows).
+
+    The pixel-sharded delta loss building block: the warp's backproject and
+    transform stay full-frame (they are the sample source for arbitrary
+    reprojected coordinates), the bilinear sampling and the reduction run
+    on the band; the full-image mean is the sum of the band sums over H*W.
+    Rows at or beyond H contribute nothing."""
+    H = depth_a.shape[0]
+    drf, gx, gy = _delta_warp_fields(depth_a, cam_a, cam_b)
+    lo = min(max(int(row_lo), 0), H)
+    band = slice(lo, lo + n_rows)
+    warped = _grid_sample_2d(drf, gx[band], gy[band])
+    inv_w = loss_ops.inv_depth(warped)
+    inv_ref = loss_ops.inv_depth(depth_b[band])
+    mask = ((acc_a[band] >= 0.5) & (acc_b[band] >= 0.5)).to(depth_a.dtype)
+    return torch.abs(inv_w * mask - inv_ref * mask).sum()
+
+
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------

@@ -20,6 +20,10 @@ is needed mid-pipeline:
   5. Per-tile runs are capped at max_chunks_per_tile * CHUNK and clipped to
      the CHUNK-padded capacity; what is dropped is counted in `overflow`.
 
+A band (band_start, band_rows) bins only those tile rows, the unit of the
+pixel axis of the sharded step (parallel/sharding.py): rects are clipped to
+the band and tile ids come out band-relative.
+
 Integer outputs are bit-equal to the JAX package's (`tests/test_torch_rasterize.py`).
 """
 
@@ -64,6 +68,8 @@ def bin_instances(
     capacity_slack: float = 1.0,
     block_x: int = 1,
     block_y: int = 1,
+    band_start: int | None = None,
+    band_rows: int | None = None,
 ) -> BinnedInstances:
     """Expand gaussians into depth-sorted per-tile instance runs.
 
@@ -76,12 +82,21 @@ def bin_instances(
     block_x/block_y bin at SUPERTILE granularity: one bin covers a
     (block_x*16) x (block_y*16) pixel block (one render-kernel block), and
     returned tile ids are supertile ids.
+
+    band_start/band_rows (both given, or neither) restrict binning to
+    supertile rows [band_start, band_start + band_rows): rects are clipped
+    to the band, tile ids are band-relative and there are sgrid_x *
+    band_rows tiles. A band past the image bins nothing.
     """
     grid_x, grid_y = tile_grid(width, height)
     blocked = block_x != 1 or block_y != 1
     sgrid_x = -(-grid_x // block_x)
     sgrid_y = -(-grid_y // block_y)
-    num_tiles = sgrid_x * sgrid_y
+    banded = band_rows is not None
+    if banded != (band_start is not None):
+        raise ValueError("band_start and band_rows go together")
+    y0 = int(band_start) if banded else 0
+    num_tiles = sgrid_x * (band_rows if banded else sgrid_y)
     dev = pre.depth.device
 
     depth = pre.depth.detach()
@@ -102,6 +117,10 @@ def bin_instances(
         rmin_y = rmin_y // block_y
         rmax_x = torch.where(empty, rmin_x, -((-rmax_x) // block_x))
         rmax_y = torch.where(empty, rmin_y, -((-rmax_y) // block_y))
+    if banded:
+        # clip to the band, band-relative rows
+        rmin_y = torch.clamp(rmin_y, y0, y0 + band_rows) - y0
+        rmax_y = torch.clamp(rmax_y, y0, y0 + band_rows) - y0
     counts = torch.where(validg, (rmax_x - rmin_x) * (rmax_y - rmin_y),
                          torch.zeros_like(rmax_x))
     offsets = torch.cumsum(counts, 0) - counts
@@ -139,7 +158,7 @@ def bin_instances(
             torch.full_like(op, -float("inf")))
         g = dorder[gid]
         qmin = tile_min_power(mean2d[g, 0], mean2d[g, 1], ca[g], cb[g], cc[g],
-                              tx, ty, pw=TILE * block_x, ph=TILE * block_y,
+                              tx, ty + y0, pw=TILE * block_x, ph=TILE * block_y,
                               rb_a=(-cb / torch.clamp(ca, min=1e-12))[g],
                               rb_c=(-cb / torch.clamp(cc, min=1e-12))[g])
         tile_id = torch.where(qmin <= lq[g], tile_id, sentinel)

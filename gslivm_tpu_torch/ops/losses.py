@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .blur import blur_many, blur_plain
 
@@ -93,6 +94,49 @@ def ssim(img1, img2, window_size: int = 11, sigma: float = 1.5,
         (mu1_sq + mu2_sq + _C1) * (sigma1_sq + sigma2_sq + _C2)
     )
     return ssim_map.mean()
+
+
+def _rows_with_halo(x, lo: int, hi: int):
+    """Rows [lo, hi) of x [C, H, W], zero outside [0, H)."""
+    H = x.shape[1]
+    inner = x[:, min(max(lo, 0), H):min(max(hi, 0), H)]
+    return F.pad(inner, (0, 0, min(max(-lo, 0), hi - lo), max(hi - max(lo, H), 0)))
+
+
+def ssim_band_sum(img1, img2, row_lo: int, n_rows: int, window_size: int = 11,
+                  sigma: float = 1.5, symmetric_window: bool = False):
+    """SUM of the SSIM map over image rows [row_lo, row_lo + n_rows).
+
+    The pixel-sharded loss building block: each rank of a "pixel" axis
+    blurs only its band plus the window radius of halo rows (zero outside
+    the image, the neighbourhood of `ssim`'s zero-padded SAME blur), and
+    the full-image mean is the sum of the band sums over C*H*W. Rows at or
+    beyond H contribute nothing. On the card the five blurs are one K3
+    launch, as in `ssim`."""
+    taps = gaussian_1d(window_size, sigma, symmetric_window)
+    r = window_size // 2
+    H = img1.shape[1]
+    row_lo = min(max(int(row_lo), 0), H)
+    a = _rows_with_halo(img1, row_lo - r, row_lo + n_rows + r)
+    b = _rows_with_halo(img2, row_lo - r, row_lo + n_rows + r)
+    mu1, mu2, m11, m22, m12 = _blur_parts([a, b, a * a, b * b, a * b], taps)
+    mu1_sq = mu1 * mu1
+    mu2_sq = mu2 * mu2
+    mu1_mu2 = mu1 * mu2
+    sigma1_sq = m11 - mu1_sq
+    sigma2_sq = m22 - mu2_sq
+    sigma12 = m12 - mu1_mu2
+    ssim_map = ((2.0 * mu1_mu2 + _C1) * (2.0 * sigma12 + _C2)) / (
+        (mu1_sq + mu2_sq + _C1) * (sigma1_sq + sigma2_sq + _C2)
+    )
+    return ssim_map[:, r:r + min(n_rows, H - row_lo)].sum()
+
+
+def l1_band_sum(img1, img2, row_lo: int, n_rows: int):
+    """SUM of |img1 - img2| over image rows [row_lo, row_lo + n_rows), the
+    sibling of ssim_band_sum; rows at or beyond H contribute nothing."""
+    lo = min(max(int(row_lo), 0), img1.shape[1])
+    return torch.abs(img1[:, lo:lo + n_rows] - img2[:, lo:lo + n_rows]).sum()
 
 
 def psnr(pred, gt):

@@ -19,6 +19,11 @@ repeat the TPU kernels' per-chunk math (`_chunk_terms`) vectorised over a
 group of tiles, including its Hillis-Steele prefix scans, so that they are
 the closest CPU twins of the JAX kernels run in interpret mode.
 
+A render may cover a band of supertile rows only (the pixel axis of the
+sharded step, parallel/sharding.py): binning clips to the band, and
+mean2d.y and the rect rows move into band-local pixels before the rank
+table is built, so K1 and K2 render a band as they render a whole image.
+
 The JAX kernels' CHUNK-aligned gradient layout (`pad_cols`/`poff`) and its
 compacted variant (`grad_cols`) serve the TPU's aligned DMA writes and its
 per-index scatter cost; K2 adds each walked instance's gradient into its
@@ -96,14 +101,17 @@ class _PermuteCols(torch.autograd.Function):
         return g[:, inv], None
 
 
-def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = False):
+def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = False,
+                      y_shift: int = 0):
     """The [FEAT, P] per-gaussian screen-feature table in DEPTH-RANK column
     order (differentiable). rect_rows appends the 4 tile-rect pixel bounds
     (supertile mode's rect test) as exact f32 values; row _FID is the
-    column's rank id. Invalid gaussians enter with opacity 0."""
+    column's rank id. Invalid gaussians enter with opacity 0. y_shift (a
+    band's first pixel row, a multiple of 16) moves mean2d.y and the rect
+    rows into band-local pixels; the rect columns stay multiples of 16."""
     rows = [
         pre.mean2d[:, 0],
-        pre.mean2d[:, 1],
+        pre.mean2d[:, 1] - y_shift if y_shift else pre.mean2d[:, 1],
         pre.conic[:, 0],
         pre.conic[:, 1],
         pre.conic[:, 2],
@@ -117,8 +125,8 @@ def _build_rank_table(pre: PreprocessedGaussians, dorder, rect_rows: bool = Fals
         rows += [
             (pre.rect_min[:, 0] * TILE).to(torch.float32),
             (pre.rect_max[:, 0] * TILE).to(torch.float32),
-            (pre.rect_min[:, 1] * TILE).to(torch.float32),
-            (pre.rect_max[:, 1] * TILE).to(torch.float32),
+            (pre.rect_min[:, 1] * TILE - y_shift).to(torch.float32),
+            (pre.rect_max[:, 1] * TILE - y_shift).to(torch.float32),
         ]
     n = dorder.shape[0]
     table = _PermuteCols.apply(torch.stack(rows, dim=0), dorder.long())
@@ -523,9 +531,15 @@ def bin_tiles(
     block_x: int = 1,
     block_y: int = 1,
     contrib_stats: bool = True,
+    tile_band: tuple[int, int] | None = None,
+    band_rows: int | None = None,
+    band_start: int | None = None,
 ) -> tuple[torch.Tensor, BinnedInstances, TileConfig]:
     """Bin a preprocessed gaussian set: returns (the [FEAT, P] rank table,
-    binned, cfg)."""
+    binned, cfg). A band, in supertile rows, is tile_band=(y0, y1) or
+    band_rows=h with band_start=y0 (rasterize_tiles tells the two modes
+    apart); cfg.grid_y is then the band's rows and the table is in
+    band-local pixels."""
     # the JAX package rounds the per-tile chunk cap up to a multiple of 8
     # (a TPU tiling rule for its checkpoint array); binning reads the cap,
     # so the port rounds alike to keep its integer outputs equal
@@ -534,17 +548,38 @@ def bin_tiles(
     if block_x * block_y > 8:
         raise ValueError(f"block_x*block_y={block_x * block_y} > 8: the pixel "
                          "block exceeds the 2048 pixels a tile kernel takes")
+    y0, n_rows = _band(-(-grid_y // block_y), tile_band, band_rows, band_start)
     cfg = TileConfig(
-        grid_x=-(-grid_x // block_x), grid_y=-(-grid_y // block_y),
+        grid_x=-(-grid_x // block_x), grid_y=n_rows,
         pw=TILE * block_x, ph=TILE * block_y,
         rect_test=block_x != 1 or block_y != 1, contrib_stats=contrib_stats,
         max_chunks=max_chunks_per_tile)
+    banded = tile_band is not None or band_rows is not None
     binned = bin_instances(
         pre, width, height, max_instances, max_chunks_per_tile,
         tile_cull=tile_cull, capacity_slack=capacity_slack,
-        block_x=block_x, block_y=block_y)
-    table = _build_rank_table(pre, binned.dorder, rect_rows=cfg.rect_test)
+        block_x=block_x, block_y=block_y,
+        band_start=y0 if banded else None, band_rows=n_rows if banded else None)
+    table = _build_rank_table(pre, binned.dorder, rect_rows=cfg.rect_test,
+                              y_shift=y0 * cfg.ph)
     return table, binned, cfg
+
+
+def _band(sgrid_y: int, tile_band, band_rows, band_start) -> tuple[int, int]:
+    """(first supertile row, rows) of a render: the whole image, a static
+    tile_band=(y0, y1), or band_rows rows from band_start."""
+    if band_rows is not None:
+        if tile_band is not None or band_start is None:
+            raise ValueError("band_rows goes with band_start, not tile_band")
+        return int(band_start), int(band_rows)
+    if band_start is not None:
+        raise ValueError("band_start needs band_rows")
+    if tile_band is not None:
+        y0, y1 = (int(v) for v in tile_band)
+        if not 0 <= y0 < y1 <= sgrid_y:
+            raise ValueError(f"tile_band {tile_band} is not inside [0, {sgrid_y})")
+        return y0, y1 - y0
+    return 0, sgrid_y
 
 
 def prepare_tiles(pre: PreprocessedGaussians, width: int, height: int, **kw):
@@ -568,9 +603,11 @@ def render_tiles_raw(pre: PreprocessedGaussians, width: int, height: int,
     """Bin + render a preprocessed gaussian set to raw tile images.
 
     Returns (img [8, grid_y*ph, grid_x*pw] with rows (C0, C1, C2, D, A, T,
-    n_contrib, neff), binned, cfg). Rows 0-5 are differentiable; with
-    depth_grad=False the backward skips the depth term. Keywords as in
-    `bin_tiles`.
+    n_contrib, neff), binned, cfg). Rows 0-5 are differentiable, the
+    transmittance T included (the depth-slab merge of parallel/primitive.py
+    differentiates through it); with depth_grad=False the backward skips
+    the depth term. Keywords as in `bin_tiles`; with a band, img covers the
+    band's rows only (cfg.grid_y = its rows).
     """
     table, binned, cfg = bin_tiles(pre, width, height, **kw)
     tiles = render_from_table(table, binned, cfg, depth_grad)
@@ -596,6 +633,9 @@ def rasterize_tiles(
     block_y: int = 1,
     depth_grad: bool = True,
     contrib_stats: bool = True,
+    tile_band: tuple[int, int] | None = None,
+    band_rows: int | None = None,
+    band_start: int | None = None,
 ) -> RenderOutput:
     """Tile-binned rasterization (← rasterize_pallas), differentiable in all
     five inputs; API-compatible with rasterize_naive.
@@ -605,6 +645,12 @@ def rasterize_tiles(
     depth_grad=False lets the backward skip the depth term (the caller
     drops the depth cotangent anyway). final_T, n_contrib and radii carry
     no gradient.
+
+    Two banded modes (the pixel axis of the sharded step), in supertile rows:
+      tile_band=(y0, y1): the output keeps the full image shape; rows
+        outside the band are background with T = 1.
+      band_rows=h, band_start=y0: the output holds the band only,
+        [.., h*16*block_y, W] (not cropped to the image height).
     """
     H, W = camera.height, camera.width
     if bg_color is None:
@@ -619,10 +665,21 @@ def rasterize_tiles(
         pre, W, H, depth_grad=depth_grad, max_instances=max_instances,
         max_chunks_per_tile=max_chunks_per_tile, tile_cull=tile_cull,
         capacity_slack=capacity_slack, block_x=block_x, block_y=block_y,
-        contrib_stats=contrib_stats)
+        contrib_stats=contrib_stats, tile_band=tile_band, band_rows=band_rows,
+        band_start=band_start)
     # per-tile walked chunks (the early-stop vote), summed
     walked = img[7, ::cfg.ph, ::cfg.pw].detach().sum().to(torch.int32)
-    img = img[:, :H, :W]
+    if band_rows is not None:
+        img = img[:, :, :W]
+    else:
+        if tile_band is not None:  # embed: background (T = 1) outside the band
+            sgrid_y = -(-tile_grid(W, H)[1] // block_y)
+            y0, y1 = tile_band
+            bg = img.new_zeros((8, (sgrid_y - (y1 - y0)) * cfg.ph, img.shape[2]))
+            bg[5] = 1.0
+            top, bottom = bg[:, :y0 * cfg.ph], bg[:, y0 * cfg.ph:]
+            img = torch.cat([top, img, bottom], dim=1)
+        img = img[:, :H, :W]
     return RenderOutput(
         color=img[0:3] + img[5][None] * bg_color[:, None, None],
         depth=img[3],

@@ -10,5 +10,7 @@ Each microbenchmark is a module with a `main()`, run on the card:
 
 They time with CUDA events (`timing.py`) and raise without a card. The
 offline tools (`evaluate.py`, `memlog.py`) run on the card by default and
-on the CPU when asked.
+on the CPU when asked; `bag_export.py` reads ROS bags on the host, and
+`multihost_demo.py` runs the sharded train step across processes
+(`--nproc N --device cpu` on gloo, or under torchrun on the cards).
 """

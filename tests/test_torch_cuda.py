@@ -628,3 +628,88 @@ def test_card_checkpoint_loads_on_the_card_and_on_the_cpu(cuda, tmp_path):
         if device.type == "cuda":
             assert r.evaluate() == mapper.evaluate()
             assert np.isfinite(float(r.train_iteration().loss))
+
+
+@pytest.mark.parametrize("block", [(1, 1), (2, 2)])
+def test_band_and_slab_through_k1_k2_match_plain_versions(cuda, block):
+    """A pixel band (band-local rows and rects) and a depth slab of a band
+    through K1 with checkpoints and K2, against their plain versions; the
+    slabs' partials fold to the single render within K1's gate plus the
+    stop bound."""
+    from gslivm_tpu_torch.parallel import primitive
+
+    rng = np.random.default_rng(8)
+    w, h = 160, 120
+    cam = make_camera(np.eye(3), np.zeros(3), w, h, fovx=1.0, fovy=0.8, device=cuda)
+    pre = rasterize_reference.preprocess(*_scene(rng, 3000, cuda), cam)
+    sgrid_y = -(-8 // block[1])
+    rows = -(-sgrid_y // 2)
+    slabs, overflow = primitive.split_depth_slabs(pre, 2)
+    assert int(overflow) == 0
+    for p in (pre, slabs[1]):
+        inst, binned, cfg = rasterize_tiles.prepare_tiles(
+            p, w, h, max_instances=1 << 16, block_x=block[0], block_y=block[1],
+            contrib_stats=False, band_rows=rows, band_start=rows)
+        assert cfg.grid_y == rows and int(binned.tile_nchunks.max()) >= 1
+        args = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+        k, ck = rasterize_tiles.composite_tiles(*args, save_ckpt=True)
+        q, _ = rasterize_tiles.composite_tiles_plain(*args, save_ckpt=True)
+        for row in range(6):
+            scale = max(float(q[:, row].abs().max()), 1.0)
+            assert float((k[:, row] - q[:, row]).abs().max()) / scale <= 1e-3, row
+        _k2_matches_plain(inst, binned.sorted_start, binned.cnt_allowed, k, ck, cfg, rng,
+                          binned.dorder.numel())
+    kw = dict(max_instances=1 << 16, block=block)
+    parts = torch.stack([primitive.render_slab_band(s, w, h, sgrid_y, 0, **kw)[0]
+                         for s in slabs])
+    folded = primitive.fold_partials(parts)
+    full, _, _ = rasterize_tiles.render_tiles_raw(pre, w, h, max_instances=1 << 16,
+                                                  block_x=block[0], block_y=block[1])
+    # the early stop fires per slab: where a walk stopped, the fold and the
+    # one-pass render drop different light, within fold_stop_bound times
+    # the largest splat colour (depth for D, 1 for A and T); else K1's gate
+    bound = primitive.fold_stop_bound(parts, full[5])
+    c, d = float(pre.color[pre.valid].max()), float(pre.depth[pre.valid].max())
+    for row, peak in enumerate((c, c, c, d, 1.0, 1.0)):
+        scale = max(float(full[row].abs().max()), 1.0)
+        assert bool(((folded[row] - full[row]).abs() <= bound * peak + 1e-3 * scale).all()), row
+
+
+def test_ssim_band_sum_through_k3_matches_the_cpu(cuda):
+    rng = np.random.default_rng(9)
+    img = rng.uniform(0, 1, (3, 90, 130)).astype(np.float32)
+    gt = np.clip(img + rng.normal(0, 0.1, img.shape), 0, 1).astype(np.float32)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = torch.as_tensor(img, device=dev).requires_grad_(True)
+        before = blur.blur_cuda.launches
+        v = losses.ssim_band_sum(x, torch.as_tensor(gt, device=dev), 40, 30)
+        (g,) = torch.autograd.grad(v, x)
+        if dev.type == "cuda":
+            assert blur.blur_cuda.launches == before + 2  # forward and VJP
+        out[dev.type] = (float(v.detach()), g.cpu())
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) <= 1e-5 * float(
+        out["cpu"][1].abs().max())
+
+
+def test_sharded_step_in_a_one_rank_nccl_world(cuda, tmp_path):
+    """multihost_demo's spawner on the card: one NCCL rank takes the tiles
+    and primitive steps; the loss equals train_step's from the same map."""
+    from gslivm_tpu_torch.tools import multihost_demo
+
+    out = tmp_path / "out.pt"
+    assert multihost_demo.main(["--nproc", "1", "--renderer", "tiles,primitive",
+                                "--gauss", "2048", "--out", str(out), "--timeout", "120"]) == 0
+    got = torch.load(out, weights_only=True)
+    params, cams, gt, simi = multihost_demo.demo_scene(2048, 64, 48, cuda)
+    opt = training.make_optimizer(params)
+    m = training.train_step(params, opt, cams, gt, simi, settings=rasterize.RasterizeSettings(
+        backend="tiles", max_instances=1 << 14, block_x=1, block_y=1))
+    for spec, tol in (("tiles", 1e-5), ("primitive", 1e-4)):
+        r = got[(1, spec)]
+        assert r["metrics"]["loss"] == pytest.approx(float(m.loss), rel=tol), spec
+        assert r["metrics"]["overflow"] == 0
+        for f in ("xyz", "opacity", "features_dc"):
+            want = getattr(params, f).grad.cpu()
+            assert float((r["grads"][f] - want).abs().max()) <= 1e-3 * float(want.abs().max())

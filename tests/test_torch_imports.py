@@ -4,6 +4,7 @@ runs without OpenCV, and its entry points refuse to fall back to the CPU
 on their own."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -69,12 +70,16 @@ NEW_MODULES = tuple(f"gslivm_tpu_torch.{m}" for m in (
     "frontend.sensors", "frontend.odometry", "frontend.vision", "frontend.vio",
     "frontend.livo", "utils.checkpoint", "utils.timer", "utils.outputs",
     "utils.trajectory", "utils.watchdog", "utils.debug", "utils.metrics",
-    "examples.run_synthetic", "examples.offline_fit"))
+    "examples.run_synthetic", "examples.offline_fit",
+    # the sharded step and the ROS-bag entry point
+    "parallel", "parallel.collectives", "parallel.primitive", "parallel.sharding",
+    "tools.multihost_demo", "frontend.rosbag", "examples.run_bag", "tools.bag_export"))
 
 
 def test_opencv_is_imported_only_for_the_off_path_options():
-    """`import cv2` appears once, in livo.py's helper for the
-    image_resize_ratio and distortion options, inside a function."""
+    """`import cv2` appears twice, each inside a helper function: livo.py's
+    for the image_resize_ratio and distortion options, and rosbag.py's for
+    sensor_msgs/CompressedImage."""
     def cv2_imports(tree):
         return [n for n in ast.walk(tree) if isinstance(n, ast.Import | ast.ImportFrom)
                 and "cv2" in [a.name for a in n.names] + [getattr(n, "module", None)]]
@@ -86,7 +91,7 @@ def test_opencv_is_imported_only_for_the_off_path_options():
         for fn in ast.walk(tree):
             if isinstance(fn, ast.FunctionDef) and cv2_imports(fn):
                 sites.add((path.name, fn.name))
-    assert sites == {("livo.py", "_cv2")} and found == 1, (sites, found)
+    assert sites == {("livo.py", "_cv2"), ("rosbag.py", "_cv2")} and found == 2, (sites, found)
 
 
 def test_livo_frontend_runs_without_opencv():
@@ -135,10 +140,11 @@ def test_livo_frontend_runs_without_opencv():
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from gslivm_tpu_torch import convert, pipeline
-    from gslivm_tpu_torch.examples import offline_fit, run_synthetic
+    from gslivm_tpu_torch.examples import offline_fit, run_bag, run_synthetic
     from gslivm_tpu_torch.frontend import gpmap, synthetic
     from gslivm_tpu_torch.frontend.livo import LivoFrontend
     from gslivm_tpu_torch.models import cameras, gaussian_model, training
+    from gslivm_tpu_torch.tools import bag_export, multihost_demo
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu = gaussian_model.create_empty(3, device="cpu")
@@ -161,6 +167,9 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         lambda: LivoFrontend(),
         lambda: run_synthetic.main(["--out", str(tmp_path / "demo")]),
         lambda: offline_fit.main([]),
+        lambda: multihost_demo.main(["--nproc", "2"]),
+        lambda: run_bag.main([str(tmp_path / "none.bag"), "--dataset",
+                              str(tmp_path / "none.yaml"), "--out", str(tmp_path / "bag")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -169,7 +178,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert gaussian_model.load_ply(str(tmp_path / "m.ply"), device="cpu").xyz.device.type == "cpu"
     assert pipeline.IncrementalMapper(initial_capacity=8, device="cpu").params.xyz.device.type == "cpu"
     assert LivoFrontend(device="cpu").device.type == "cpu"
-    assert not (tmp_path / "demo").exists()
+    assert not (tmp_path / "demo").exists() and not (tmp_path / "bag").exists()
+    # bag_export is host code: it runs with no card, and is not on the list
+    from gslivm_tpu_torch.frontend import rosbag
+
+    img = np.arange(4 * 5 * 3, dtype=np.uint8).reshape(4, 5, 3)
+    rosbag.write_bag(str(tmp_path / "cam.bag"),
+                     [("/cam", "sensor_msgs/Image", 1.0, rosbag.encode_image(1.0, img))])
+    bag_export.main(["images", str(tmp_path / "cam.bag"), "--topic", "/cam",
+                     "--out", str(tmp_path / "rgb")])
+    assert os.listdir(tmp_path / "rgb") == ["1.000000.png"]
 
 
 def test_kernels_are_not_built_at_import():
