@@ -149,6 +149,32 @@ each pose in pose.txt within 1e-4 m of the livo phase's front-end position
 after the sweep that emitted the frame, ATE < 0.05 m; it prints the host ms
 to read and decode the bag by message type and wall_fps.
 
+The camera intake (`frontend/{jpeg,png,imgproc}.py`, no OpenCV):
+bag_compressed's bag holds the livo phase's LiDAR and IMU streams
+unchanged and, at each sweep's image time, the dolly camera's view at
+r3live's camera (configs/datasets/r3live.yaml: 1280x1024, its topics and
+five distortion coefficients; the dolly's intrinsics scaled to that size),
+ray-cast through that distortion (`synthetic.render_image(...,
+distortion=)`, one spawned process per core) and written as a JPEG
+sensor_msgs/CompressedImage at quality 80 by `rosbag.
+encode_compressed_image`. codec_parity decodes each of those JPEGs:
+entropy decoding on the host (C++), reconstruction on the card and on the
+CPU, bit-equal; resize to 640x512 (OpenCV's 2x2 area path) and to 896x716
+(its bilinear path), and the 640x512 image remapped through r3live's
+undistortion map, each card result bit-equal to the CPU's (integer ops: no
+tolerance); it prints the host ms of entropy decoding and of a whole
+decode, the CUDA-event ms of reconstruction, resizes and remap (medians
+over the images) and the JPEG bytes. bag_compressed runs examples/run_bag
+on that bag in a subprocess with a dataset yaml of r3live's camera at
+ratio 0.5 with its distortion, so decoding, resize and remap run on the
+card: exit 0 and every artifact, poses within 1e-4 m of the livo phase's,
+ATE < 0.05 m, and from run_bag's `keyframes:` line keyframe 0 up >= 3 dB
+and the keyframe mean at or above its staged mean; it prints wall_fps, the
+front end's ms a sweep and decoding ms by message type beside the raw
+run_bag phase's, and both bags' bytes. gp_figure runs
+`tools/gp_figure.compute(seed=42)` on the card against the CPU within
+1e-3 of scale (map_parity's GP gate).
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
@@ -204,7 +230,11 @@ f32 VJP's distance (or 1e-5 of scale: f32 rounding alone moves it by
 band sums of SSIM, L1 and delta-depth add up to the full-frame sums
 within 1e-5 relative. run_bag:
 poses within 1e-4 m of the livo phase's (the bag holds float32 points and
-integer-ns times).
+integer-ns times). codec_parity: the card's reconstruction, resizes and
+remap equal the CPU's in every value (integer ops: no tolerance).
+bag_compressed: as run_bag, and keyframe 0 up >= 3 dB with the mean at or
+above its staged mean, as in livo. gp_figure: 1e-3 of scale
+(map_parity's GP gate).
 """
 
 from __future__ import annotations
@@ -278,6 +308,13 @@ EXCHANGE_ROWS = 17              # 15 screen rows, the slab position, the occupie
 GRAD_FOLD_TOL = 3e-3
 # the ROS-bag entry point (run_bag): the livo phase's streams written as a bag
 BAG_TOPICS = {"imu": "/livox/imu", "lidar": "/livox/lidar", "image": "/camera/image"}
+# the camera intake (codec_parity, bag_compressed): the livo streams with each
+# image at r3live's camera (configs/datasets/r3live.yaml: its topics, 1280x1024,
+# resize ratio 0.5, its five distortion coefficients), ray-cast through that
+# distortion and JPEG-encoded at compressed_image_transport's default quality
+R3LIVE_YAML = os.path.join(ROOT, "configs", "datasets", "r3live.yaml")
+JPEG_QUALITY = 80
+ODD_RESIZE = (896, 716)  # the non-integer ratio 0.7 of 1280x1024: OpenCV's bilinear path
 
 
 def emit(phase: str, **fields):
@@ -598,7 +635,6 @@ def map_loop(frames, cfg, dev, profiled, counters):
     import torch
 
     from gslivm_tpu_torch import pipeline
-    from gslivm_tpu_torch.ops import losses
 
     mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
 
@@ -609,11 +645,6 @@ def map_loop(frames, cfg, dev, profiled, counters):
         finally:
             for c, n in zip(counters.values(), saved):
                 c.launches = n
-
-    def keyframe_scores(i):
-        out = mapper.render_keyframe(i)
-        gt = mapper._gt_device[i]
-        return torch.stack([losses.psnr(out.color, gt), losses.ssim(out.color, gt)])
 
     def adam_rows():
         """(every moment has `capacity` rows, any moment is non-zero)"""
@@ -644,7 +675,7 @@ def map_loop(frames, cfg, dev, profiled, counters):
                             "adam_moments_nonzero": live})
             capacity.append(mapper.params.capacity)
         if len(mapper.cameras) > kf:  # staged: its score before training on it
-            staged.append(uncounted(lambda: keyframe_scores(kf)))
+            staged.append(uncounted(lambda: mapper.score_keyframe(kf)))
         before = {k: c.launches for k, c in counters.items()}
         frame_losses = []
         for _ in range(MAP_ITERS):
@@ -667,7 +698,8 @@ def map_loop(frames, cfg, dev, profiled, counters):
     assert np.isfinite(all_losses).all(), all_losses
     prof = uncounted(lambda: profiled(mapper.train_iteration))
 
-    final = uncounted(lambda: torch.stack([keyframe_scores(i) for i in range(len(mapper.cameras))]))
+    final = uncounted(lambda: torch.stack([mapper.score_keyframe(i)
+                                           for i in range(len(mapper.cameras))]))
     final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
     gaussians, voxels = int(mapper.params.n_active), len(mapper.registry)
 
@@ -786,7 +818,6 @@ def livo_serial(stream, cfg, dev, profiled, counters):
 
     from gslivm_tpu_torch import pipeline
     from gslivm_tpu_torch.frontend import native
-    from gslivm_tpu_torch.ops import losses
 
     fe = livo_frontend(stream, cfg, dev)
     mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
@@ -798,11 +829,6 @@ def livo_serial(stream, cfg, dev, profiled, counters):
         finally:
             for c, n in zip(counters.values(), saved):
                 c.launches = n
-
-    def keyframe_scores(i):
-        out = mapper.render_keyframe(i)
-        gt = mapper._gt_device[i]
-        return torch.stack([losses.psnr(out.color, gt), losses.ssim(out.color, gt)])
 
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
@@ -835,7 +861,7 @@ def livo_serial(stream, cfg, dev, profiled, counters):
                                 "to": mapper.params.capacity})
                 capacity.append(mapper.params.capacity)
             if len(mapper.cameras) > kf:  # staged: its score before training on it
-                staged.append(uncounted(lambda: keyframe_scores(kf)))
+                staged.append(uncounted(lambda: mapper.score_keyframe(kf)))
                 torch.cuda.synchronize()
             t2 = time.perf_counter()
             t_probe += t2 - t1
@@ -858,7 +884,7 @@ def livo_serial(stream, cfg, dev, profiled, counters):
     all_losses = torch.cat(losses_).numpy()
     assert np.isfinite(all_losses).all(), all_losses
     prof = uncounted(lambda: profiled(mapper.train_iteration))
-    final = uncounted(lambda: torch.stack([keyframe_scores(i)
+    final = uncounted(lambda: torch.stack([mapper.score_keyframe(i)
                                            for i in range(len(mapper.cameras))]))
     final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1571,27 +1597,192 @@ def write_dolly_bag(stream, path: str) -> dict:
             "write_seconds": time.perf_counter() - t0}
 
 
-def dolly_dataset_yaml(path: str, stream):
-    """A dataset yaml of the dolly's camera and topics (identity extrinsics,
-    no distortion), whose overrides are livo_config()'s."""
+def r3live_camera() -> dict:
+    """configs/datasets/r3live.yaml's image topics, size, ratio and
+    distortion."""
+    from gslivm_tpu_torch.config import load_yaml
+
+    ds = load_yaml(R3LIVE_YAML)["dataset"]
+    return {"topics": {"imu": ds["imu_topic"], "lidar": ds["lidar_topic"],
+                       "image": ds["image_topic"]},
+            "size": (ds["image_width"], ds["image_height"]),
+            "ratio": float(ds["image_resize_ratio"]),
+            "K": np.array([[ds["fx"], 0, ds["cx"]], [0, ds["fy"], ds["cy"]], [0, 0, 1.0]]),
+            "dist": [ds[k] for k in ("dist_k1", "dist_k2", "dist_p1", "dist_p2", "dist_k3")]}
+
+
+def render_jpeg_message(job) -> bytes:
+    """One bag_compressed image (run in a pool worker): the dolly camera at
+    `center` with r3live's size and distortion, ray-cast and encoded as a
+    JPEG sensor_msgs/CompressedImage."""
+    import torch
+
+    from gslivm_tpu_torch.frontend import rosbag, synthetic
+    from gslivm_tpu_torch.models.cameras import make_camera
+
+    torch.set_num_threads(1)
+    t, center, (w, h), dist = job
+    cam = make_camera(np.eye(3), center, w, h, fovx=synthetic.LIDAR_FOVX,
+                      fovy=synthetic.LIDAR_FOVX * h / w, device="cpu")
+    img = synthetic.render_image(cam, synthetic.default_scene(), distortion=dist)
+    return rosbag.encode_compressed_image(t, img, JPEG_QUALITY)
+
+
+def write_compressed_bag(stream, path: str, cam: dict):
+    """The livo phase's LiDAR and IMU streams unchanged, each sweep's image
+    at the same time rendered by r3live's camera and JPEG-encoded
+    (render_jpeg_message, one spawned process per core), on r3live's
+    topics. Returns (bag fields, the CompressedImage messages)."""
+    import multiprocessing
+
+    from gslivm_tpu_torch.frontend import rosbag, synthetic
+
+    t0 = time.perf_counter()
+    start = stream.sweeps[0].lidar.t_begin  # when the dolly's motion began
+    jobs = [(sw.image_time, synthetic.dolly_position(sw.image_time - start), cam["size"],
+             cam["dist"]) for sw in stream.sweeps]
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        images = pool.map(render_jpeg_message, jobs)
+    render_s = time.perf_counter() - t0
+    topics = cam["topics"]
+
+    def messages():
+        for t, gyr, acc in stream.init_imu:
+            yield (topics["imu"], "sensor_msgs/Imu", t, rosbag.encode_imu(t, gyr, acc))
+        for sw, msg in zip(stream.sweeps, images):
+            li = sw.lidar
+            yield (topics["lidar"], "livox_ros_driver/CustomMsg", li.t_begin,
+                   rosbag.encode_livox_custom(li.t_begin, li.xyz, li.rel_time))
+            for t, gyr, acc in sw.imu:
+                yield (topics["imu"], "sensor_msgs/Imu", t, rosbag.encode_imu(t, gyr, acc))
+            yield (topics["image"], "sensor_msgs/CompressedImage", sw.image_time, msg)
+
+    n = rosbag.write_bag(path, messages())
+    sizes = [len(m) - m.index(b"\xff\xd8\xff") for m in images]
+    return {"messages": n, "bytes": os.path.getsize(path), "render_encode_seconds": render_s,
+            "write_seconds": time.perf_counter() - t0 - render_s, "images": len(images),
+            "jpeg_bytes_mean": float(np.mean(sizes)), "jpeg_bytes_min": min(sizes),
+            "jpeg_bytes_max": max(sizes)}, images
+
+
+def codec_parity(messages, cam: dict, dev, profiled) -> dict:
+    """The camera intake on the card against the CPU, bit for bit, on the
+    bag_compressed images: each JPEG entropy-decoded once on the host (host
+    ms), reconstructed on the card (CUDA-event ms) and on the CPU, resized
+    to half size (OpenCV's 2x2 area path) and to ODD_RESIZE (its bilinear
+    path), and the half-size image remapped through r3live's undistortion
+    map (CUDA-event ms); medians over the images. Then one image's
+    reconstruction, and its resize and remap, under the profiler (device
+    busy time, idle share, launches)."""
+    import torch
+
+    from gslivm_tpu_torch.frontend import imgproc, jpeg
+
+    w, h = (int(v * cam["ratio"]) for v in cam["size"])
+    K = cam["K"] * np.array([[cam["ratio"]], [cam["ratio"]], [1.0]])  # as LivoFrontend scales it
+    xy, fxy = imgproc.undistort_rectify_map(K, cam["dist"], (w, h))
+    maps_cpu = (torch.from_numpy(xy), torch.from_numpy(fxy.astype(np.int32)))
+    maps = tuple(m.to(dev) for m in maps_cpu)
+
+    def timed(fn):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn()
+        e1.record()
+        return out, (e0, e1)
+
+    entropy_ms, decode_ms, events = [], [], {"reconstruct": [], "resize_half": [],
+                                             "resize_odd": [], "remap": []}
+    mismatches = {k: 0 for k in events}
+    for i, msg in enumerate(messages):
+        data = msg[msg.index(b"\xff\xd8\xff"):]
+        t0 = time.perf_counter()
+        coefs = jpeg.entropy_decode(data)
+        entropy_ms.append((time.perf_counter() - t0) * 1e3)
+        card, ev = timed(lambda: jpeg.reconstruct(coefs, dev))
+        events["reconstruct"].append(ev)
+        half, ev = timed(lambda: imgproc.resize_linear(card, (w, h)))
+        events["resize_half"].append(ev)
+        odd, ev = timed(lambda: imgproc.resize_linear(card, ODD_RESIZE))
+        events["resize_odd"].append(ev)
+        und, ev = timed(lambda: imgproc.remap_linear(half, *maps))
+        events["remap"].append(ev)
+        cpu = jpeg.reconstruct(coefs, "cpu")
+        cpu_half = imgproc.resize_linear(cpu, (w, h))
+        for key, a, b in (("reconstruct", card, cpu), ("resize_half", half, cpu_half),
+                          ("resize_odd", odd, imgproc.resize_linear(cpu, ODD_RESIZE)),
+                          ("remap", und, imgproc.remap_linear(cpu_half, *maps_cpu))):
+            mismatches[key] += int((a.cpu() != b).sum())
+        t0 = time.perf_counter()
+        jpeg.decode(data, dev)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    # the first image pays the card's first calls of each op: medians skip nothing
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
+    prof = {"reconstruct": profiled(lambda: jpeg.reconstruct(coefs, dev)),
+            "resize_remap": profiled(lambda: imgproc.remap_linear(
+                imgproc.resize_linear(card, (w, h)), *maps))}
+    out = {"images": len(messages), "shape": [cam["size"][1], cam["size"][0], 3],
+           "half": [h, w], "odd": [ODD_RESIZE[1], ODD_RESIZE[0]],
+           "mismatched_values": mismatches,
+           "entropy_host_ms_median": float(np.median(entropy_ms)),
+           "decode_host_ms_median": float(np.median(decode_ms)),
+           **{f"{k}_ms_median": float(np.median(v)) for k, v in ms.items()},
+           **{f"{k}_ms_max": float(np.max(v)) for k, v in ms.items()},
+           "map_pixels_outside": int(((xy[..., 0] < 0) | (xy[..., 0] >= w)
+                                      | (xy[..., 1] < 0) | (xy[..., 1] >= h)).sum()),
+           **{f"profile_{k}": {f: v[f] for f in ("wall_ms", "device_busy_ms", "idle_share",
+                                                  "launches")} | {"top": v["top"][:4]}
+              for k, v in prof.items()}}
+    assert not any(mismatches.values()), out
+    return out
+
+
+def gp_figure_check(dev) -> dict:
+    """tools/gp_figure.compute on the card against the CPU (map_parity's GP
+    gate, 1e-3 of scale), then its plot where matplotlib exists."""
+    import torch
+
+    from gslivm_tpu_torch.ops import gp3d
+    from gslivm_tpu_torch.tools import gp_figure
+
+    _, card = gp_figure.compute(seed=42, device=dev)
+    _, cpu = gp_figure.compute(seed=42, device="cpu")
+    errs = {}
+    for f in gp3d.GpResult._fields:
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        errs[f] = float((a != b).sum()) if b.dtype == torch.bool else nan_scaled_err(a, b)
+    out = {"errors": errs, "tol": 1e-3, "device": str(card.means.device),
+           "test_points": list(card.test_points.shape)}
+    assert card.means.device.type == "cuda" and max(errs.values()) <= 1e-3, out
+    return out
+
+
+def dolly_dataset_yaml(path: str, stream, topics=BAG_TOPICS, size=(LIVO_W, LIVO_H),
+                       ratio: float = 1.0, dist=(0.0,) * 5):
+    """A dataset yaml of the dolly's camera (its intrinsics scaled to
+    `size`, a centred principal point) and `topics` (identity extrinsics),
+    whose overrides are livo_config()'s."""
+    w, h = size
+    fx, fy = stream.fx * w / LIVO_W, stream.fy * h / LIVO_H
     with open(path, "w") as f:
         f.write(f"""dataset:
-    lidar_topic: "{BAG_TOPICS['lidar']}"
-    imu_topic: "{BAG_TOPICS['imu']}"
-    image_topic: "{BAG_TOPICS['image']}"
+    lidar_topic: "{topics['lidar']}"
+    imu_topic: "{topics['imu']}"
+    image_topic: "{topics['image']}"
     lidar_type: livox
-    image_width: {LIVO_W}
-    image_height: {LIVO_H}
-    image_resize_ratio: 1.0
-    fx: {float(stream.fx)!r}
-    fy: {float(stream.fy)!r}
-    cx: {float(stream.cx)!r}
-    cy: {float(stream.cy)!r}
-    dist_k1: 0.0
-    dist_k2: 0.0
-    dist_p1: 0.0
-    dist_p2: 0.0
-    dist_k3: 0.0
+    image_width: {w}
+    image_height: {h}
+    image_resize_ratio: {ratio!r}
+    fx: {float(fx)!r}
+    fy: {float(fy)!r}
+    cx: {(w - 1) / 2.0!r}
+    cy: {(h - 1) / 2.0!r}
+    dist_k1: {float(dist[0])!r}
+    dist_k2: {float(dist[1])!r}
+    dist_p1: {float(dist[2])!r}
+    dist_p2: {float(dist[3])!r}
+    dist_k3: {float(dist[4])!r}
     t_imu_lidar: "0,0,0"
     R_imu_lidar: "1,0,0,0,1,0,0,0,1"
     t_imu_camera: "0,0,0"
@@ -1661,6 +1852,7 @@ def run_bag_check(bag: str, ds: str, common: str, want, gt_positions, dev):
                                   for a, b in zip(lines, ref_lines)),
            "ate_m": ate, "ate_max_m": LIVO_ATE_MAX,
            "bag": line("bag: "), "pipeline": line("pipeline: "),
+           "keyframes": line("keyframes: "),
            "eval": next((x for x in stdout if x.startswith("eval:")), None),
            "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""}
     assert proc.returncode == 0, out
@@ -2226,6 +2418,12 @@ def main() -> int:
     bag_written = write_dolly_bag(stream, bag)
     dolly_dataset_yaml(os.path.join(bag_dir.name, "dolly.yaml"), stream)
     open(os.path.join(bag_dir.name, "empty.yaml"), "w").close()
+    r3live = r3live_camera()
+    jpeg_bag = os.path.join(bag_dir.name, "dolly_jpeg.bag")
+    jpeg_written, jpeg_messages = write_compressed_bag(stream, jpeg_bag, r3live)
+    dolly_dataset_yaml(os.path.join(bag_dir.name, "dolly_jpeg.yaml"), stream,
+                       topics=r3live["topics"], size=r3live["size"], ratio=r3live["ratio"],
+                       dist=r3live["dist"])
     frames_of = [i for i, k in enumerate(livo_fields["frames_per_sweep"]) for _ in range(k)]
     bag_want = est[frames_of]
     bag_gt = np.asarray([stream.sweeps[i].gt_displacement for i in frames_of])
@@ -2246,10 +2444,38 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- run_bag: the ROS-bag entry point on the livo phase's streams ------
-    emit("run_bag", bag_file=bag_written, **run_bag_check(
-        bag, os.path.join(bag_dir.name, "dolly.yaml"),
-        os.path.join(bag_dir.name, "empty.yaml"), bag_want, bag_gt, dev))
+    raw_bag = run_bag_check(bag, os.path.join(bag_dir.name, "dolly.yaml"),
+                            os.path.join(bag_dir.name, "empty.yaml"), bag_want, bag_gt, dev)
+    emit("run_bag", bag_file=bag_written, **raw_bag)
+
+    # ---- the camera intake: codec_parity, bag_compressed -------------------
+    emit("codec_parity", **codec_parity(jpeg_messages, r3live, dev, profiled))
+    del jpeg_messages
+    comp = run_bag_check(jpeg_bag, os.path.join(bag_dir.name, "dolly_jpeg.yaml"),
+                         os.path.join(bag_dir.name, "empty.yaml"), bag_want, bag_gt, dev)
     bag_dir.cleanup()
+    kfs = comp["keyframes"] or {}
+    staged = np.asarray(kfs.get("psnr_staged") or [])
+    final = np.asarray(kfs.get("psnr_final") or [])
+    per_sweep = {name: r["pipeline"]["frontend_s"] / r["pipeline"]["sweeps"] * 1e3
+                 for name, r in (("raw", raw_bag), ("jpeg", comp))}
+    emit("bag_compressed", bag_file=jpeg_written, camera={
+        "size": list(r3live["size"]), "ratio": r3live["ratio"], "dist": r3live["dist"],
+        "topics": r3live["topics"], "jpeg_quality": JPEG_QUALITY}, **comp,
+        kf0_psnr_staged_final=[float(staged[0]), float(final[0])] if len(staged) else None,
+        mean_psnr_staged_final=[float(staged.mean()), float(final.mean())]
+        if len(staged) else None,
+        frontend_ms_per_sweep=per_sweep,
+        wall_fps={"raw": raw_bag["pipeline"]["wall_fps"], "jpeg": comp["pipeline"]["wall_fps"]},
+        decode_ms_per_message={"raw": raw_bag["bag"]["decode_ms_per_message"],
+                               "jpeg": comp["bag"]["decode_ms_per_message"]},
+        bag_bytes={"raw": bag_written["bytes"], "jpeg": jpeg_written["bytes"]})
+    assert len(staged) == len(final) >= 2, kfs
+    assert final[0] >= staged[0] + 3.0, kfs
+    assert final.mean() >= staged.mean(), kfs
+
+    # ---- gp_figure: the offline tool's GP on the card ----------------------
+    emit("gp_figure", **gp_figure_check(dev))
 
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"

@@ -15,11 +15,15 @@ Usage:
 
 The JAX example's flags, defaults and artifacts; its --cpu is --device cpu
 here, and the default device is the card. Image topics stored as
-sensor_msgs/CompressedImage (r3live, FAST-LIVO) are decoded with OpenCV,
-which must be installed for them; raw sensor_msgs/Image needs nothing.
-Besides the JAX example's lines it prints `bag:` (host ms to read the bag
-and to decode each message type) and `pipeline:` (wall, front end, mapper
-and wall_fps, sweeps a second) as JSON.
+sensor_msgs/CompressedImage (r3live, FAST-LIVO) are decoded by the port's
+own JPEG and PNG decoders (a JPEG's reconstruction on --device), and the
+dataset's image_resize_ratio and distortion run on --device too; nothing
+needs OpenCV. Besides the JAX example's lines it prints `bag:` (host ms to
+read the bag, to decode each message type, and `intake_ms`, the front
+end's resize and undistortion of the images), `pipeline:` (wall, front
+end, mapper and wall_fps, sweeps a second) and `keyframes:` (each
+keyframe's PSNR when staged, before training on it, in the serial loop,
+and at the end) as JSON.
 """
 
 from __future__ import annotations
@@ -111,6 +115,7 @@ def main(argv=None):
     decode_s, counts = defaultdict(float), defaultdict(int)
     count = trained = sweeps = 0
     m = None
+    staged = []  # keyframe PSNRs when staged, on the device until the end
     messages = rosbag.read_bag(args.bag, {ds["imu_topic"], ds["lidar_topic"], ds["image_topic"]})
     while True:
         tr = time.perf_counter()
@@ -122,7 +127,7 @@ def main(argv=None):
             print("watchdog: no sensor data for a full period — stopping")
             break
         tf0 = time.perf_counter()
-        rec = rosbag.decode(msg, lidar_type=cfg.common.lidar_type)
+        rec = rosbag.decode(msg, lidar_type=cfg.common.lidar_type, device=dev)
         decode_s[msg.datatype] += time.perf_counter() - tf0
         counts[msg.datatype] += 1
         if isinstance(rec, ImuSample):
@@ -153,8 +158,11 @@ def main(argv=None):
                           f"kf {len(mapper.cameras):4d} loss {float(m.loss):.4f}", flush=True)
                 continue
             tm0 = time.perf_counter()
+            kf = len(mapper.cameras)
             with Timer.evaluate("gsPointCloudUpdate"):
                 stats = mapper.add_frame(frame)
+            if len(mapper.cameras) > kf:
+                staged.append(mapper.score_keyframe(kf)[0])
             if mapper.started:
                 dog.notify_started()  # is_gs_started gate
             for _ in range(args.train_iters_per_frame):
@@ -179,7 +187,8 @@ def main(argv=None):
     print("bag:", json.dumps({
         "messages": dict(counts), "read_ms": t_read * 1e3,
         "decode_ms": {k: v * 1e3 for k, v in decode_s.items()},
-        "decode_ms_per_message": {k: decode_s[k] * 1e3 / counts[k] for k in counts}}),
+        "decode_ms_per_message": {k: decode_s[k] * 1e3 / counts[k] for k in counts},
+        "intake_ms": fe.stage_seconds["intake"] * 1e3}),
         flush=True)
     serial_sum = t_frontend + t_mapper
     print("pipeline:", json.dumps({
@@ -198,10 +207,15 @@ def main(argv=None):
                              colored.position[ok].astype(np.float32),
                              np.clip(colored.rgb[ok], 0, 255).astype(np.uint8))
     os.makedirs(os.path.join(args.out, "training"), exist_ok=True)
+    final = []
     for i in range(len(mapper.cameras)):
         out = mapper.render_keyframe(i)
         outputs.save_side_by_side(os.path.join(args.out, "training", f"{i}.png"),
                                   out.color.cpu().numpy(), mapper.gt_images[i])
+        final.append(float(mapper.score_keyframe(i)[0]))
+    print("keyframes:", json.dumps({
+        "psnr_staged": [float(v) for v in staged] if cm is None else None,
+        "psnr_final": final}), flush=True)
     Timer.dump_into_file(max(len(mapper.cameras), 1), (time.time() - t0) * 1e3,
                          os.path.join(args.out, "log_time.txt"))
     print("eval:", mapper.evaluate())

@@ -16,10 +16,11 @@ Where the port differs from the JAX front end: its state is host numpy as
 there, but each emitted Frame's `Camera` and `CameraProjection` are the
 port's tensors on `device` (the mapper's device); the image path runs the
 port's `vision.rgb_to_gray` and the tracker's `vision` calls in place of
-OpenCV. `image_resize_ratio != 1` and `distortion` still call OpenCV
-(cv2.resize, initUndistortRectifyMap/remap) and raise an ImportError naming
-the option where it is absent. `stage_seconds` accumulates the host seconds
-of each stage over the packets drained since the caller last cleared it.
+OpenCV, and `image_resize_ratio != 1` and `distortion` run `imgproc`'s
+bit-exact copies of cv2.resize and initUndistortRectifyMap/remap on
+`device` (the image returns to the host as the uint8 numpy array cv2 would
+give: the stage `intake`). `stage_seconds` accumulates the host seconds of
+each stage over the packets drained since the caller last cleared it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..models.cameras import make_camera
 from ..ops.gp3d import CameraProjection
 from ..pipeline import Frame
 from ..utils.device import resolve_device
-from . import so3, vision
+from . import imgproc, so3, vision
 from .odometry import (
     Odometry,
     motion_compensate_constant,
@@ -49,15 +50,6 @@ from .vio import (
     vio_esikf,
     vio_photometric,
 )
-
-
-def _cv2(option: str):
-    try:
-        import cv2  # noqa: PLC0415
-    except ImportError as e:
-        raise ImportError(f"LivoFrontend's {option} needs OpenCV (cv2), which is "
-                          "not installed") from e
-    return cv2
 
 
 class LivoFrontend:
@@ -79,7 +71,6 @@ class LivoFrontend:
         self.device = resolve_device(device)
         self.cfg = config
         if image_resize_ratio != 1.0:
-            _cv2("image_resize_ratio")
             # imageProcessing::process resize path (imageProcessing.cpp:114-127)
             fx *= image_resize_ratio
             fy *= image_resize_ratio
@@ -91,11 +82,10 @@ class LivoFrontend:
         self.K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
         self._undistort_maps = None
         if distortion is not None and np.any(np.asarray(distortion) != 0):
-            cv2 = _cv2("distortion")
             # cv::initUndistortRectifyMap + remap (imageProcessing.cpp:131-135)
-            self._undistort_maps = cv2.initUndistortRectifyMap(
-                self.K.astype(np.float64), np.asarray(distortion, np.float64),
-                None, self.K.astype(np.float64), (width, height), cv2.CV_16SC2)
+            xy, fxy = imgproc.undistort_rectify_map(self.K, distortion, (width, height))
+            self._undistort_maps = (torch.from_numpy(xy).to(self.device),
+                                    torch.from_numpy(fxy.astype(np.int32)).to(self.device))
         self.width, self.height = width, height
         self.R_ic = np.asarray(R_imu_camera, np.float64)
         self.t_ic = np.asarray(t_imu_camera, np.float64)
@@ -141,12 +131,15 @@ class LivoFrontend:
         if idx % max(self.cfg.common.image_filter_num, 1) != 0:
             return
         image = np.asarray(image)
-        if self.image_resize_ratio != 1.0:
-            image = _cv2("image_resize_ratio").resize(image, (self.width, self.height))
-        if self._undistort_maps is not None:
-            cv2 = _cv2("distortion")
-            image = cv2.remap(image, self._undistort_maps[0],
-                              self._undistort_maps[1], cv2.INTER_LINEAR)
+        if self.image_resize_ratio != 1.0 or self._undistort_maps is not None:
+            t0 = time.perf_counter()
+            img = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+            if self.image_resize_ratio != 1.0:
+                img = imgproc.resize_linear(img, (self.width, self.height))
+            if self._undistort_maps is not None:
+                img = imgproc.remap_linear(img, *self._undistort_maps)
+            image = img.cpu().numpy()
+            self.stage_seconds["intake"] += time.perf_counter() - t0
         self.sync.push_image(ImageSample(t, image))
         self._drain()
 

@@ -1,14 +1,17 @@
-"""ctypes loader for the native C++ voxel map (`native/voxel_map.cpp`)
-(the port's own copy of gslivm_tpu/frontend/native.py).
+"""ctypes loaders for the port's host C++: the voxel map
+(`native/voxel_map.cpp`; the port's own copy of
+gslivm_tpu/frontend/native.py) and the camera intake's entropy coding
+(`gslivm_tpu_torch/csrc/jpeg_entropy.cpp`, `codec()`).
 
-Builds the shared library on demand with g++ and the JAX package's flags
+Builds each shared library on demand with g++ and the JAX package's flags
 (plain C ABI + ctypes; no pybind11), and exposes `NativeVoxelMap` with the
 same API as the numpy `frontend.voxelmap.VoxelMap` so the odometry can swap
 it in. Where the JAX loader writes its library next to the source, the
 port writes into its own `gslivm_tpu_torch/build/` (never into `native/`),
 under a name that hashes the source and the flags, as `kernels.py` names
 its CUDA libraries: an edited source or flag rebuilds it. `available()` is
-False when no compiler can build it.
+False when no compiler can build the voxel map; the intake has no other
+decoder, so `codec()` raises instead.
 """
 
 from __future__ import annotations
@@ -23,30 +26,32 @@ from pathlib import Path
 import numpy as np
 
 SRC = Path(__file__).resolve().parents[2] / "native" / "voxel_map.cpp"
+CODEC_SRC = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_entropy.cpp"
 BUILD = Path(__file__).resolve().parents[1] / "build"
 FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
 
 _LIB = None
 _TRIED = False
+_CODEC = None
 _LOCK = threading.Lock()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
+def library_path(src: Path = SRC, stem: str = "libgslivm_native") -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(FLAGS).encode())
-    return BUILD / f"libgslivm_native-{h.hexdigest()[:12]}.so"
+    return BUILD / f"{stem}-{h.hexdigest()[:12]}.so"
 
 
-def _build() -> Path | None:
-    if not SRC.exists():
+def _build(src: Path = SRC, stem: str = "libgslivm_native") -> Path | None:
+    if not src.exists():
         return None
-    out = library_path()
+    out = library_path(src, stem)
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     try:
-        subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)],
+        subprocess.run(["g++", *FLAGS, str(src), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=120)
     except (OSError, subprocess.SubprocessError):
         return None
@@ -87,6 +92,29 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def codec():
+    """The loaded `csrc/jpeg_entropy.cpp` (jpeg_decode_scan,
+    jpeg_encode_scan, png_unfilter); raises when g++ cannot build it."""
+    global _CODEC
+    with _LOCK:
+        if _CODEC is not None:
+            return _CODEC
+        path = _build(CODEC_SRC, "libgslivm_codec")
+        if path is None:
+            raise RuntimeError(f"g++ could not build {CODEC_SRC}")
+        lib = ctypes.CDLL(str(path))
+        p = ctypes.c_void_p
+        i, lg = ctypes.c_int, ctypes.c_long
+        lib.jpeg_decode_scan.restype = lg
+        lib.jpeg_decode_scan.argtypes = [p, lg, i, p, i, i, i, p, p, p]
+        lib.jpeg_encode_scan.restype = lg
+        lib.jpeg_encode_scan.argtypes = [p, i, p, i, i, p, p, p, lg]
+        lib.png_unfilter.restype = i
+        lib.png_unfilter.argtypes = [p, lg, lg, i, p]
+        _CODEC = lib
+        return lib
 
 
 def _as_dp(a: np.ndarray):

@@ -19,14 +19,16 @@ to:
                                    tag filter)
   - sensor_msgs/Image          -> ImageSample (rgb8, bgr8 by a channel
                                    flip, mono8)
-  - sensor_msgs/CompressedImage -> ImageSample through OpenCV's imdecode,
-                                   the one message that needs cv2 (r3live's
-                                   and FAST-LIVO's image topics)
+  - sensor_msgs/CompressedImage -> ImageSample (r3live's and FAST-LIVO's
+                                   image topics): JPEG through `jpeg`
+                                   (entropy decoding in C++, reconstruction
+                                   on `device`) and PNG through `png`, each
+                                   equal to OpenCV's imdecode
   - geometry_msgs/PoseStamped, nav_msgs/Odometry -> PoseSample
 
 `write_bag` and the `encode_*` functions write the messages the front end
-reads (IMU, Livox CustomMsg, raw Image) into an uncompressed v2.0 bag, for
-a recorded run of a synthetic stream.
+reads (IMU, Livox CustomMsg, raw Image, JPEG CompressedImage) into an
+uncompressed v2.0 bag, for a recorded run of a synthetic stream.
 """
 
 from __future__ import annotations
@@ -37,16 +39,8 @@ from typing import Iterable, Iterator, NamedTuple
 
 import numpy as np
 
+from . import jpeg, png
 from .sensors import ImageSample, ImuSample, LidarSweep
-
-
-def _cv2(what: str):
-    try:
-        import cv2  # noqa: PLC0415
-    except ImportError as e:
-        raise ImportError(f"decoding {what} needs OpenCV (cv2), which is not "
-                          "installed") from e
-    return cv2
 
 
 def _read_header(data: bytes) -> dict:
@@ -240,16 +234,22 @@ def decode_livox_custom(raw: bytes, stamp: float, tag_filter: bool = True) -> Li
     return LidarSweep(stamp, xyz, rel, pts["reflectivity"].astype(np.float32))
 
 
-def decode_compressed_image(raw: bytes, stamp: float) -> ImageSample:
-    """sensor_msgs/CompressedImage -> RGB uint8, through OpenCV's imdecode."""
-    cv2 = _cv2("sensor_msgs/CompressedImage")
+def decode_compressed_image(raw: bytes, stamp: float, device="cuda") -> ImageSample:
+    """sensor_msgs/CompressedImage -> RGB uint8, equal to OpenCV's
+    imdecode(IMREAD_COLOR) with BGR->RGB. The format is sniffed from the
+    magic bytes, as imdecode does, not from the `format` string
+    (compressed_image_transport writes "bgr8; jpeg compressed bgr8"); a
+    JPEG's reconstruction runs on `device`."""
     pos, _ = _skip_std_header(raw)
     (flen,) = struct.unpack_from("<I", raw, pos)
     pos += 4 + flen  # format string
     (dlen,) = struct.unpack_from("<I", raw, pos)
-    pos += 4
-    img = cv2.imdecode(np.frombuffer(raw, np.uint8, dlen, pos), cv2.IMREAD_COLOR)
-    return ImageSample(stamp, np.ascontiguousarray(img[..., ::-1]))
+    data = raw[pos + 4:pos + 4 + dlen]
+    if data.startswith(b"\xff\xd8\xff"):
+        return ImageSample(stamp, jpeg.decode(data, device))
+    if data.startswith(png.SIGNATURE):
+        return ImageSample(stamp, png.decode(data))
+    raise ValueError(f"unsupported compressed image format (magic {data[:8].hex()})")
 
 
 def decode_image(raw: bytes, stamp: float) -> ImageSample:
@@ -303,8 +303,9 @@ def decode_odometry(raw: bytes) -> PoseSample:
     return _decode_pose_at(raw, off + 4 + clen, stamp)
 
 
-def decode(msg: BagMessage, lidar_type: str = "auto"):
-    """Route a BagMessage to its sensor record (None for other types)."""
+def decode(msg: BagMessage, lidar_type: str = "auto", device="cuda"):
+    """Route a BagMessage to its sensor record (None for other types); a
+    JPEG CompressedImage is reconstructed on `device`."""
     dt = msg.datatype
     if dt == "sensor_msgs/Imu":
         return decode_imu(msg.raw)
@@ -313,7 +314,7 @@ def decode(msg: BagMessage, lidar_type: str = "auto"):
     if dt == "livox_ros_driver/CustomMsg":
         return decode_livox_custom(msg.raw, msg.t)
     if dt == "sensor_msgs/CompressedImage":
-        return decode_compressed_image(msg.raw, msg.t)
+        return decode_compressed_image(msg.raw, msg.t, device)
     if dt == "sensor_msgs/Image":
         return decode_image(msg.raw, msg.t)
     if dt == "geometry_msgs/PoseStamped":
@@ -329,8 +330,9 @@ def play_bag(path: str, frontend, imu_topic: str, lidar_topic: str, image_topic:
     Returns the number of messages played."""
     count = 0
     lidar_type = frontend.cfg.common.lidar_type if hasattr(frontend, "cfg") else "auto"
+    device = getattr(frontend, "device", "cuda")
     for msg in read_bag(path, {imu_topic, lidar_topic, image_topic}):
-        rec = decode(msg, lidar_type=lidar_type)
+        rec = decode(msg, lidar_type=lidar_type, device=device)
         if isinstance(rec, ImuSample):
             frontend.push_imu(rec.t, rec.gyr, rec.acc)
         elif isinstance(rec, LidarSweep):
@@ -399,6 +401,16 @@ def encode_image(t: float, rgb: np.ndarray) -> bytes:
     data = np.ascontiguousarray(rgb, np.uint8).tobytes()
     return (_std_header(t) + struct.pack("<II", h, w) + struct.pack("<I", 4) + b"rgb8"
             + bytes([0]) + struct.pack("<I", w * 3) + struct.pack("<I", len(data)) + data)
+
+
+def encode_compressed_image(t: float, rgb: np.ndarray, quality: int = 80) -> bytes:
+    """sensor_msgs/CompressedImage holding a baseline 4:2:0 JPEG of `rgb`
+    (`jpeg.encode`; quality 80 is compressed_image_transport's default),
+    with its format string."""
+    fmt = b"rgb8; jpeg compressed bgr8"
+    data = jpeg.encode(rgb, quality)
+    return (_std_header(t) + struct.pack("<I", len(fmt)) + fmt
+            + struct.pack("<I", len(data)) + data)
 
 
 def write_bag(path: str, messages: Iterable[tuple[str, str, float, bytes]]) -> int:

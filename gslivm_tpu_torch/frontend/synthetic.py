@@ -78,15 +78,33 @@ def _intersect(origins, dirs, plane: Plane):
     return t, u, v, hit
 
 
-def render_image(camera: Camera, planes: list[Plane]) -> np.ndarray:
-    """Ray-cast ground-truth RGB image [H, W, 3] uint8."""
+def undistort_normalized(xd: np.ndarray, yd: np.ndarray, dist, iters: int = 20):
+    """Invert OpenCV's radial-tangential model (k1, k2, p1, p2[, k3]) on
+    normalised image coordinates by cv::undistortPoints' fixed-point
+    iteration; returns the pinhole (x, y)."""
+    k1, k2, p1, p2, k3 = (list(dist) + [0.0] * 5)[:5]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x, y = (xd - dx) * icdist, (yd - dy) * icdist
+    return x, y
+
+
+def render_image(camera: Camera, planes: list[Plane], distortion=None) -> np.ndarray:
+    """Ray-cast ground-truth RGB image [H, W, 3] uint8. With OpenCV
+    `distortion` coefficients, each pixel's ray is that of a distorted
+    camera (the image a lens with them records)."""
     H, W = camera.height, camera.width
     fx, fy = float(camera.fx), float(camera.fy)
     cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
     ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    d_cam = np.stack(
-        [(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, np.float64)], axis=-1
-    )
+    xn, yn = (xs - cx) / fx, (ys - cy) / fy
+    if distortion is not None:
+        xn, yn = undistort_normalized(xn, yn, distortion)
+    d_cam = np.stack([xn, yn, np.ones_like(xs, np.float64)], axis=-1)
     R_wc = _host(camera.R_cw).T
     dirs = d_cam @ R_wc.T
     dirs = dirs.reshape(-1, 3)

@@ -502,14 +502,18 @@ class IncrementalMapper:
         gm.save_ply(self.params, path)
 
     @torch.no_grad()
+    def score_keyframe(self, index: int) -> torch.Tensor:
+        """[PSNR, SSIM] of keyframe `index`'s render against its ground
+        truth, on the device (no host read)."""
+        out = self.render_keyframe(index)
+        gt = self._gt_device[index]
+        return torch.stack([loss_ops.psnr(out.color, gt), loss_ops.ssim(out.color, gt)])
+
+    @torch.no_grad()
     def evaluate(self) -> dict:
         """Mean PSNR/SSIM over all keyframes (saveRender,
         lioOptimization.cpp:2198-2234), read back once."""
-        pairs = []
-        for i in range(len(self.cameras)):
-            out = self.render_keyframe(i)
-            pairs.append(torch.stack([loss_ops.psnr(out.color, self._gt_device[i]),
-                                      loss_ops.ssim(out.color, self._gt_device[i])]))
+        pairs = [self.score_keyframe(i) for i in range(len(self.cameras))]
         vals = torch.stack(pairs).cpu().numpy() if pairs else np.zeros((0, 2))
         return {
             "mean_psnr": float(np.mean(vals[:, 0])) if pairs else 0.0,

@@ -1,12 +1,12 @@
 """Rosbag extraction (the port's own copy of gslivm_tpu/tools/bag_export.py:
 python/parse_pose.py + extract_image.py + listen_odom.py offline parity),
-built on the ROS-free reader frontend/rosbag.py; host code only.
+built on the ROS-free reader frontend/rosbag.py; host code, but for the
+reconstruction of JPEG CompressedImages on --device.
 
     python -m gslivm_tpu_torch.tools.bag_export poses BAG --topic /gt --out gt.txt
         PoseStamped/Odometry -> TUM rows
     python -m gslivm_tpu_torch.tools.bag_export images BAG --topic /cam --out rgb/
-        Image/CompressedImage -> <stamp>.png + an rgb.txt index (TUM style);
-        compressed images need OpenCV
+        Image/CompressedImage -> <stamp>.png + an rgb.txt index (TUM style)
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ def extract_poses(bag_path: str, topic: str, out_path: str) -> int:
 
 
 def extract_images(bag_path: str, topic: str, out_dir: str,
-                   index_path: str | None = None) -> int:
+                   index_path: str | None = None, device="cuda") -> int:
     """Save every image on `topic` as <stamp>.png plus a `stamp dir/<name>`
-    index (extract_image.py:8-48)."""
+    index (extract_image.py:8-48); JPEGs are reconstructed on `device`."""
     os.makedirs(out_dir, exist_ok=True)
     if index_path is None:
         index_path = os.path.join(out_dir, os.pardir, "rgb.txt")
@@ -47,7 +47,7 @@ def extract_images(bag_path: str, topic: str, out_dir: str,
     n = 0
     with open(index_path, "a") as idx:
         for msg in rb.read_bag(bag_path, {topic}):
-            rec = rb.decode(msg)
+            rec = rb.decode(msg, device=device)
             if rec is None or not hasattr(rec, "image"):
                 continue
             name = f"{rec.t:.6f}.png"
@@ -72,11 +72,14 @@ def main(argv=None):
     p.add_argument("--topic", required=True)
     p.add_argument("--out", default="rgb")
     p.add_argument("--index", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="where JPEG images are reconstructed: cuda (the default) or cpu")
     args = ap.parse_args(argv)
     if args.cmd == "poses":
         print(extract_poses(args.bag, args.topic, args.out), "poses")
     else:
-        print(extract_images(args.bag, args.topic, args.out, args.index), "images")
+        print(extract_images(args.bag, args.topic, args.out, args.index, args.device),
+              "images")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 the card against their plain PyTorch versions, the tiles backend's
 gradients against the naive backend's, a few train steps, and the
 incremental mapper (GP ingest, growth, training, pruning), the LIVO front
-end into a card mapper and a card checkpoint, at small
+end into a card mapper and a card checkpoint, and the camera intake's
+integer ops (JPEG reconstruction, resize, remap) against the CPU, at small
 shapes. CUDA kernels have no CPU mode, so every test here needs an NVIDIA
 card with nvcc and skips elsewhere. Run on the card with:
 
@@ -713,3 +714,72 @@ def test_sharded_step_in_a_one_rank_nccl_world(cuda, tmp_path):
         for f in ("xyz", "opacity", "features_dc"):
             want = getattr(params, f).grad.cpu()
             assert float((r["grads"][f] - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# ---- the camera intake: integer ops, so the card equals the CPU bit for bit ----
+
+@pytest.mark.parametrize("sampling", [((1, 1),), ((1, 1), (1, 1), (1, 1)), ((2, 1), (1, 1), (1, 1)),
+                                      ((1, 2), (1, 1), (1, 1)), ((2, 2), (1, 1), (1, 1)),
+                                      ((4, 1), (1, 1), (1, 1))])
+def test_jpeg_reconstruction_on_card_matches_the_cpu(cuda, sampling):
+    """Gray, 4:4:4, 4:2:2, 4:4:0, 4:2:0 and 4:1:1 coefficient planes of a
+    ragged 77x53 image (DC spread over the range, AC falling with
+    frequency, so the clamps are hit) through dequantisation, IDCT,
+    upsampling and colour conversion."""
+    from gslivm_tpu_torch.frontend import jpeg
+
+    rng = np.random.default_rng(len(sampling) + sampling[0][0] * 3 + sampling[0][1])
+    w, h = 77, 53
+    hmax, vmax = max(a for a, _ in sampling), max(b for _, b in sampling)
+    mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    comps = tuple(jpeg.Component(i + 1, a, b, min(i, 1)) for i, (a, b) in enumerate(sampling))
+    decay = 1.0 / (1.0 + np.add.outer(np.arange(8), np.arange(8)).reshape(64))
+    blocks = [np.round(rng.normal(0, 40, (my * b, mx * a, 64)) * decay).astype(np.int16)
+              for a, b in sampling]
+    for blk in blocks:
+        blk[..., 0] = rng.integers(-80, 80, blk.shape[:2])
+    coefs = jpeg.Coefficients(w, h, comps, dict(enumerate(jpeg.quality_tables(75))), blocks)
+    card = jpeg.reconstruct(coefs, cuda)
+    assert card.device.type == "cuda" and card.shape == (h, w, 3)
+    assert torch.equal(card.cpu(), jpeg.reconstruct(coefs, "cpu"))
+
+
+def test_jpeg_decode_on_card_matches_the_cpu(cuda):
+    """The port's encoder's 4:2:0 stream, entropy-decoded once on the host
+    and reconstructed on the card and on the CPU."""
+    from gslivm_tpu_torch.frontend import jpeg
+
+    rng = np.random.default_rng(7)
+    img = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    coefs = jpeg.entropy_decode(jpeg.encode(img, 80))
+    assert torch.equal(jpeg.reconstruct(coefs, cuda).cpu(), jpeg.reconstruct(coefs, "cpu"))
+    np.testing.assert_array_equal(jpeg.decode(jpeg.encode(img, 95), cuda),
+                                  jpeg.decode(jpeg.encode(img, 95), "cpu"))
+
+
+@pytest.mark.parametrize("src,dst", [((128, 96), (64, 48)), ((128, 96), (77, 53)),
+                                     ((96, 64), (200, 150))])
+def test_resize_on_card_matches_the_cpu(cuda, src, dst):
+    from gslivm_tpu_torch.frontend import imgproc
+
+    img = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (src[1], src[0], 3),
+                                                              dtype=np.uint8))
+    card = imgproc.resize_linear(img.to(cuda), dst)
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), imgproc.resize_linear(img, dst))
+
+
+def test_remap_on_card_matches_the_cpu(cuda):
+    """r3live.yaml's distortion at 320x256 (its K at ratio 0.25)."""
+    from gslivm_tpu_torch.frontend import imgproc
+
+    r = 0.25
+    K = np.array([[863.4241 * r, 0, 640.6808 * r], [0, 863.4171 * r, 518.3392 * r], [0, 0, 1]])
+    xy, fxy = imgproc.undistort_rectify_map(
+        K, [-0.1080, 0.1050, -1.2872e-04, 5.7923e-05, -0.0222], (320, 256))
+    maps = torch.from_numpy(xy), torch.from_numpy(fxy.astype(np.int32))
+    img = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (256, 320, 3),
+                                                              dtype=np.uint8))
+    card = imgproc.remap_linear(img.to(cuda), *(m.to(cuda) for m in maps))
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), imgproc.remap_linear(img, *maps))

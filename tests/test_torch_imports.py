@@ -73,13 +73,17 @@ NEW_MODULES = tuple(f"gslivm_tpu_torch.{m}" for m in (
     "examples.run_synthetic", "examples.offline_fit",
     # the sharded step and the ROS-bag entry point
     "parallel", "parallel.collectives", "parallel.primitive", "parallel.sharding",
-    "tools.multihost_demo", "frontend.rosbag", "examples.run_bag", "tools.bag_export"))
+    "tools.multihost_demo", "frontend.rosbag", "examples.run_bag", "tools.bag_export",
+    # the camera intake (its C++ loaded by frontend.native) and the offline tools
+    "frontend.jpeg", "frontend.png", "frontend.imgproc", "tools.calib", "tools.nerf_export",
+    "tools.traj_plot", "tools.time_plot", "tools.see_image", "tools.sbs_video",
+    "tools.gp_figure"))
 
 
 def test_opencv_is_imported_only_for_the_off_path_options():
-    """`import cv2` appears twice, each inside a helper function: livo.py's
-    for the image_resize_ratio and distortion options, and rosbag.py's for
-    sensor_msgs/CompressedImage."""
+    """`import cv2` appears once, inside a helper function: the mp4 writer
+    of tools/sbs_video.py. The camera intake (CompressedImage decoding,
+    resize, undistortion) and the image path run without it."""
     def cv2_imports(tree):
         return [n for n in ast.walk(tree) if isinstance(n, ast.Import | ast.ImportFrom)
                 and "cv2" in [a.name for a in n.names] + [getattr(n, "module", None)]]
@@ -91,51 +95,131 @@ def test_opencv_is_imported_only_for_the_off_path_options():
         for fn in ast.walk(tree):
             if isinstance(fn, ast.FunctionDef) and cv2_imports(fn):
                 sites.add((path.name, fn.name))
-    assert sites == {("livo.py", "_cv2"), ("rosbag.py", "_cv2")} and found == 2, (sites, found)
+    assert sites == {("sbs_video.py", "_video_writer")} and found == 1, (sites, found)
 
 
-def test_livo_frontend_runs_without_opencv():
+NO_CV2_RUN = '''
+import sys
+sys.modules["cv2"] = None
+import torch
+torch.set_num_threads(1)
+from gslivm_tpu_torch.config import Config, GpParams, IcpOptions, OdometryOptions
+from gslivm_tpu_torch.examples import run_bag
+from gslivm_tpu_torch.frontend import rosbag, synthetic
+from gslivm_tpu_torch.frontend.livo import LivoFrontend
+from gslivm_tpu_torch.pipeline import IncrementalMapper
+from gslivm_tpu_torch.utils.outputs import save_png
+
+tmp = sys.argv[1]
+R3LIVE = [-0.1080, 0.1050, -1.2872e-04, 5.7923e-05, -0.0222]  # r3live.yaml
+cfg = Config(gp=GpParams(grid=0.5),
+             odometry=OdometryOptions(init_num_frames=2, sample_voxel_size=0.6,
+                                      init_sample_voxel_size=0.6),
+             icp=IcpOptions(min_number_neighbors=8, size_voxel_map=0.5))
+
+
+def run(fe, st):
+    for s in st.init_imu:
+        fe.push_imu(*s)
+    for sw in st.sweeps:
+        fe.push_lidar(sw.lidar)
+        for s in sw.imu:
+            fe.push_imu(*s)
+        fe.push_image(sw.image_time, sw.image)
+    return fe.pop_frames()
+
+
+st = synthetic.dolly_stream(6, 64, 48, 600)
+fe = LivoFrontend(cfg, fx=st.fx, fy=st.fy, cx=st.cx, cy=st.cy, width=64, height=48,
+                  device="cpu")
+frames = run(fe, st)
+assert len(frames) >= 4 and fe.stage_seconds["lk"] > 0, len(frames)
+m = IncrementalMapper(cfg, bootstrap_points=50, initial_capacity=1024, device="cpu")
+print(m.add_frame(frames[-1])["voxels"]["cells"])
+
+big = synthetic.dolly_stream(6, 128, 96, 600)
+fe = LivoFrontend(cfg, fx=big.fx, fy=big.fy, cx=big.cx, cy=big.cy, width=128, height=96,
+                  image_resize_ratio=0.5, distortion=R3LIVE, device="cpu")
+frames = run(fe, big)
+assert len(frames) >= 4 and frames[-1].image.shape == (48, 64, 3), len(frames)
+assert fe.stage_seconds["intake"] > 0
+
+
+def png_message(t, rgb):
+    save_png(tmp + "/f.png", rgb)
+    data = open(tmp + "/f.png", "rb").read()
+    return (rosbag._std_header(t) + (3).to_bytes(4, "little") + b"png"
+            + len(data).to_bytes(4, "little") + data)
+
+
+def messages():
+    for t, g, a in big.init_imu:
+        yield "/imu", "sensor_msgs/Imu", t, rosbag.encode_imu(t, g, a)
+    for i, sw in enumerate(big.sweeps):
+        li = sw.lidar
+        yield ("/lidar", "livox_ros_driver/CustomMsg", li.t_begin,
+               rosbag.encode_livox_custom(li.t_begin, li.xyz, li.rel_time))
+        for t, g, a in sw.imu:
+            yield "/imu", "sensor_msgs/Imu", t, rosbag.encode_imu(t, g, a)
+        msg = rosbag.encode_compressed_image(sw.image_time, sw.image) if i % 2 \\
+            else png_message(sw.image_time, sw.image)
+        yield "/cam", "sensor_msgs/CompressedImage", sw.image_time, msg
+
+
+rosbag.write_bag(tmp + "/c.bag", messages())
+k1, k2, p1, p2, k3 = R3LIVE
+open(tmp + "/ds.yaml", "w").write(f"""dataset:
+    lidar_topic: /lidar
+    imu_topic: /imu
+    image_topic: /cam
+    lidar_type: livox
+    image_width: 128
+    image_height: 96
+    image_resize_ratio: 0.5
+    fx: {big.fx}
+    fy: {big.fy}
+    cx: {big.cx}
+    cy: {big.cy}
+    dist_k1: {k1}
+    dist_k2: {k2}
+    dist_p1: {p1}
+    dist_p2: {p2}
+    dist_k3: {k3}
+    t_imu_lidar: "0,0,0"
+    R_imu_lidar: "1,0,0,0,1,0,0,0,1"
+    t_imu_camera: "0,0,0"
+    R_imu_camera: "1,0,0,0,1,0,0,0,1"
+gp:
+    grid: 0.5
+odometry:
+    init_num_frames: 2
+    sample_voxel_size: 0.6
+    init_sample_voxel_size: 0.6
+icp:
+    min_number_neighbors: 8
+    size_voxel_map: 0.5
+""")
+run_bag.main([tmp + "/c.bag", "--dataset", tmp + "/ds.yaml", "--out", tmp + "/out",
+              "--device", "cpu", "--backend", "naive", "--train-iters-per-frame", "1"])
+print(len(open(tmp + "/out/pose.txt").read().splitlines()))
+print("cv2" in sys.modules and sys.modules["cv2"] is None)
+'''
+
+
+def test_livo_frontend_runs_without_opencv(tmp_path):
     """With cv2 unimportable, the default-option front end runs on the CPU
     over a few sweeps with images (LK, F and PnP RANSAC included) and one
-    emitted frame goes into a CPU mapper; the off-path options raise an
-    ImportError that names them."""
-    code = (
-        "import sys\n"
-        "sys.modules['cv2'] = None\n"
-        "import torch\n"
-        "torch.set_num_threads(1)\n"
-        "from gslivm_tpu_torch.config import Config, GpParams, IcpOptions, OdometryOptions\n"
-        "from gslivm_tpu_torch.frontend import synthetic\n"
-        "from gslivm_tpu_torch.frontend.livo import LivoFrontend\n"
-        "from gslivm_tpu_torch.pipeline import IncrementalMapper\n"
-        "st = synthetic.dolly_stream(6, 64, 48, 600)\n"
-        "cfg = Config(gp=GpParams(grid=0.5), odometry=OdometryOptions(init_num_frames=2,"
-        " sample_voxel_size=0.6, init_sample_voxel_size=0.6),"
-        " icp=IcpOptions(min_number_neighbors=8, size_voxel_map=0.5))\n"
-        "fe = LivoFrontend(cfg, fx=st.fx, fy=st.fy, cx=st.cx, cy=st.cy, width=64, height=48,"
-        " device='cpu')\n"
-        "for s in st.init_imu: fe.push_imu(*s)\n"
-        "for sw in st.sweeps:\n"
-        "    fe.push_lidar(sw.lidar)\n"
-        "    for s in sw.imu: fe.push_imu(*s)\n"
-        "    fe.push_image(sw.image_time, sw.image)\n"
-        "frames = fe.pop_frames()\n"
-        "assert len(frames) >= 4 and fe.stage_seconds['lk'] > 0, len(frames)\n"
-        "m = IncrementalMapper(cfg, bootstrap_points=50, initial_capacity=1024, device='cpu')\n"
-        "print(m.add_frame(frames[-1])['voxels']['cells'])\n"
-        "for kw in ({'image_resize_ratio': 0.5}, {'distortion': [0.1, 0, 0, 0]}):\n"
-        "    try:\n"
-        "        LivoFrontend(cfg, device='cpu', **kw)\n"
-        "    except ImportError as e:\n"
-        "        assert next(iter(kw)) in str(e), e\n"
-        "    else:\n"
-        "        raise AssertionError(kw)\n"
-        "print('cv2' in sys.modules and sys.modules['cv2'] is None)\n")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=PKG.parent, timeout=120)
+    emitted frame goes into a CPU mapper; a front end at image_resize_ratio
+    0.5 with configs/datasets/r3live.yaml's distortion runs too; and
+    run_bag takes a mini bag of JPEG and PNG CompressedImages with such a
+    dataset yaml."""
+    out = subprocess.run([sys.executable, "-c", NO_CV2_RUN, str(tmp_path)], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
-    cells, untouched = out.stdout.split()
-    assert int(cells) > 0 and untouched == "True"
+    lines = out.stdout.split("\n")
+    cells, poses, untouched = lines[0], lines[-3], lines[-2]
+    assert int(cells) > 0 and int(poses) >= 4 and untouched == "True", out.stdout[-2000:]
+    assert '"sensor_msgs/CompressedImage": 6' in out.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
