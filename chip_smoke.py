@@ -175,17 +175,43 @@ run_bag phase's, and both bags' bytes. gp_figure runs
 `tools/gp_figure.compute(seed=42)` on the card against the CPU within
 1e-3 of scale (map_parity's GP gate).
 
+The root tools that drive the mapper and the rasterizer
+(`gslivm_tpu_torch/tools/`), each phase through the tool's own `run`,
+with the K1-K3 counters set to 0 just before each tool run and read just
+after: quality (quality_bench at QUALITY_r05.json's settings: 960x600, 30
+keyframes, 30,000 points a frame, GP grid 0.12, 2,000 iterations with the
+log-lerped position and scaling rates and a prune every 100, a curve point
+every 50; overflow 0 at every curve point, every loss finite and the
+tool's 25 dB floor asserted; the final PSNR/SSIM, minimum keyframe, depth
+L1, gaussians, prunes, budget refits and escalations, peak memory (with
+what the earlier phases hold at its start), and the
+train seconds with an idle share estimated from 20 profiled iterations,
+beside QUALITY_r05.json's quality, never its TPU times), quality_diag
+(init, and oracle at its default spacing: 102,400 splats, 800 iterations),
+loop_profile (profile_iteration's stages A, A2, B, D, C with device busy
+time, and profile_ingest over 10 frames), blocks (exp_block's sweep of
+(2,2), (3,2), (2,3), (4,2), (2,4) on the bench scene: expansion, kept,
+busiest tile, fitted budgets, overflow 0 there, fwd+bwd ms and busy ms;
+then crosscheck_blocks of each against (2,2) with its gates) and
+projection (band_projection for N = 1, 2, 4, 8 with the NVLink rate it
+assumes, and scaling_bench on one NCCL rank in this process: N = 1, larger
+N reported as needing more cards).
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
 launches in kernelcost and step_profile, and `launches_map`, their
 launches in the map loop, `launches_livo`, their launches in the
-livo loop, and `launches_shard`, their launches in the one-rank sharded
-steps (0 for T1 and T2); K1, K2, K3 and T2 carry their
+livo loop, `launches_shard`, their launches in the one-rank sharded
+steps, and `launches_quality`, `launches_quality_diag`,
+`launches_loop_profile`, `launches_blocks` and `launches_projection`,
+their launches in those phases, each added into `launches` (0 for T1 and
+T2); K1, K2, K3 and T2 carry their
 registers and blocks per SM and say where their times before the redesign
 stand, which this script does not measure), and last {"ok": true, "device":
-{...}}. Any failure raises and exits non-zero; without CUDA the script
-exits 1 and prints no result.
+{...}}. Any failure raises, prints its traceback and the last phase
+printed on stderr, and exits 1; without CUDA, or without the package beside
+it (the script alone), the script exits 1 and prints no result.
 
 Tolerances: K1 against its plain version, rows C, D, A, T: max abs
 deviation over max(|plain|, 1) per row <= 1e-3 (sequential compositing vs a
@@ -234,7 +260,10 @@ integer-ns times). codec_parity: the card's reconstruction, resizes and
 remap equal the CPU's in every value (integer ops: no tolerance).
 bag_compressed: as run_bag, and keyframe 0 up >= 3 dB with the mean at or
 above its staged mean, as in livo. gp_figure: 1e-3 of scale
-(map_parity's GP gate).
+(map_parity's GP gate). blocks: crosscheck_blocks' own gates, color,
+depth and acc within max |diff| < 5e-4 and each of the five gradients
+within 2e-3 of the (2,2) gradient's max (tools/crosscheck_blocks.py).
+quality: the tool's 25 dB floor on the final PSNR.
 """
 
 from __future__ import annotations
@@ -247,6 +276,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 
@@ -315,10 +345,31 @@ BAG_TOPICS = {"imu": "/livox/imu", "lidar": "/livox/lidar", "image": "/camera/im
 R3LIVE_YAML = os.path.join(ROOT, "configs", "datasets", "r3live.yaml")
 JPEG_QUALITY = 80
 ODD_RESIZE = (896, 716)  # the non-integer ratio 0.7 of 1280x1024: OpenCV's bilinear path
+# the root tools' slice: quality_bench at QUALITY_r05.json's settings (the
+# tool's defaults, 960x600, 30 keyframes, 30,000 points a frame, GP grid
+# 0.12, with 2,000 iterations and a curve point every 50), and the JAX
+# reference's record of that run (quality only: its times are a TPU's)
+QUALITY_ARGV = ["--iters", "2000", "--curve-every", "50"]
+QUALITY_RECORD = os.path.join(ROOT, "QUALITY_r05.json")
+QUALITY_RECORD_KEYS = ("final_psnr", "final_ssim", "min_keyframe_psnr", "depth_l1_inv",
+                       "gaussians", "keyframes", "resolution", "iters")
+QUALITY_PROFILE_ITERS = 20   # iterations of the trained map under the profiler
+# quality_diag's oracle at its default spacing (102,400 splats); its
+# iterations are the first cut should the script outgrow its time limit
+DIAG_ORACLE_ITERS = 800
+PROJECTION_DEVICES = (1, 2, 4, 8)
+# scaling_bench on one NCCL rank: N = 1 runs, N = 2 and 4 are reported as
+# needing more cards
+SCALING_ARGV = ["--devices", "1", "2", "4", "--phases"]
+NEW_PHASES = ("quality", "quality_diag", "loop_profile", "blocks", "projection")
 
 
 def emit(phase: str, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+    emit.last_phase = phase
+
+
+emit.last_phase = None
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -515,6 +566,62 @@ def map_parity(frames_cpu, frames_gpu, cfg, dev):
     return out
 
 
+def tile_kernel_parity(table, binned, cfg, cotangent, depth_grad, k1):
+    """K1 with its checkpoints and K2 against their plain versions on one
+    binned render. Adds K1's worst scaled row error and its n_contrib,
+    neff and checkpoint disagreements into the dict k1; K2 takes the tile
+    cotangent `cotangent(tiles)` (tiles from K1). Returns (K2's per-gaussian
+    rows, the plain ones, K2's worst scaled row error, K1's tiles)."""
+    import torch
+
+    from gslivm_tpu_torch.ops import rasterize_tiles as rt
+
+    dev = table.device
+    with torch.no_grad():
+        inst = table.detach().t()[binned.gid_sorted.long()].contiguous()
+        kargs = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
+        tiles, ckpt = rt.composite_tiles(*kargs, save_ckpt=True)
+        ptiles, pckpt = rt.composite_tiles_plain(*kargs, save_ckpt=True)
+        for row in range(6):
+            scale = max(float(ptiles[:, row].abs().max()), 1.0)
+            k1["rows"] = max(k1["rows"],
+                             float((tiles[:, row] - ptiles[:, row]).abs().max()) / scale)
+        k1["ncontrib"] += int((tiles[:, 6] != ptiles[:, 6]).sum())
+        k1["neff"] += int((tiles[:, 7, 0] != ptiles[:, 7, 0]).sum())
+        neff = torch.maximum(tiles[:, 7, 0], ptiles[:, 7, 0]).long()
+        walked = torch.arange(cfg.max_chunks, device=dev)[None, :] < neff[:, None]
+        if bool(walked.any()):
+            k1["ckpt"] = max(k1["ckpt"], float((ckpt.abs() - pckpt.abs())[walked].abs().max()))
+        k1["flags"] += int(((ckpt < 0) != (pckpt < 0))[walked].sum())
+        k1["pixels"] += cfg.num_tiles * cfg.npix
+        k1["tiles"] += cfg.num_tiles
+        k1["ckpt_values"] += int(walked.sum()) * cfg.npix
+        del ptiles, pckpt
+    g_tiles = cotangent(tiles).contiguous()
+    bwd_args = (inst, binned.sorted_start, binned.cnt_allowed, g_tiles, tiles, ckpt, cfg)
+    n = table.shape[1]
+    with torch.no_grad():
+        d_k = rt.composite_tiles_bwd(*bwd_args, n, depth_grad)
+        d_p = rt.scatter_instance_grads(rt.composite_tiles_bwd_plain(*bwd_args, depth_grad),
+                                        n, depth_grad)
+    return d_k, d_p, max(scaled_err(d_k[c], d_p[c]) for c in range(10)), tiles
+
+
+def k1_fields(k1) -> dict:
+    return {"k1_max_scaled_err": k1["rows"], "k1_ncontrib_mismatch_pixels": k1["ncontrib"],
+            "pixels": k1["pixels"], "k1_neff_mismatch_tiles": k1["neff"], "tiles": k1["tiles"],
+            "ckpt_max_abs_err": k1["ckpt"], "ckpt_flag_flips": k1["flags"],
+            "ckpt_walked_values": k1["ckpt_values"]}
+
+
+def check_k1(k1):
+    """k1_parity's gates: rows and checkpoints 1e-3 of scale, at most 0.1%
+    of pixels, tiles and checkpoint values disagreeing."""
+    assert k1["rows"] <= 1e-3 and k1["ckpt"] <= 1e-3, k1
+    assert k1["ncontrib"] <= 1e-3 * k1["pixels"] and k1["neff"] <= 1e-3 * k1["tiles"], k1
+    assert k1["flags"] <= 1e-3 * k1["ckpt_values"], k1
+
+
 def map_kernel_parity(mapper, dev, size=(MAP_W, MAP_H)):
     """K1, K2 and K3 against their plain versions at the map loop's own
     shapes: the views of one train_iteration drawn by the mapper's sampler,
@@ -534,8 +641,8 @@ def map_kernel_parity(mapper, dev, size=(MAP_W, MAP_H)):
     views = curr + [i for pair in hist for i in pair]
     lam, dg = training.GsOptimParams().lambda_dssim, st.depth_grad
     taps = losses.gaussian_1d()
-    k1 = {"rows": 0.0, "ncontrib": 0, "neff": 0, "ckpt": 0.0, "flags": 0, "pixels": 0,
-          "tiles": 0, "ckpt_values": 0}
+    k1 = dict.fromkeys(("rows", "ncontrib", "neff", "ckpt", "flags", "pixels", "tiles",
+                        "ckpt_values"), 0)
     k2, param_err, k3, shapes = 0.0, {}, {}, []
     for i in views:
         cam, gt = mapper.cameras[i], mapper._gt_device[i]
@@ -547,48 +654,26 @@ def map_kernel_parity(mapper, dev, size=(MAP_W, MAP_H)):
             pre, w, h, max_instances=st.max_instances,
             max_chunks_per_tile=st.max_chunks_per_tile, capacity_slack=st.capacity_slack,
             block_x=st.block_x, block_y=st.block_y, contrib_stats=False)
-        with torch.no_grad():
-            inst = table.detach().t()[binned.gid_sorted.long()].contiguous()
-            kargs = (inst, binned.sorted_start, binned.tile_nchunks, binned.cnt_allowed, cfg)
-            tiles, ckpt = rt.composite_tiles(*kargs, save_ckpt=True)
-            ptiles, pckpt = rt.composite_tiles_plain(*kargs, save_ckpt=True)
-            for row in range(6):
-                scale = max(float(ptiles[:, row].abs().max()), 1.0)
-                k1["rows"] = max(k1["rows"],
-                                 float((tiles[:, row] - ptiles[:, row]).abs().max()) / scale)
-            k1["ncontrib"] += int((tiles[:, 6] != ptiles[:, 6]).sum())
-            k1["neff"] += int((tiles[:, 7, 0] != ptiles[:, 7, 0]).sum())
-            neff = torch.maximum(tiles[:, 7, 0], ptiles[:, 7, 0]).long()
-            walked = torch.arange(cfg.max_chunks, device=dev)[None, :] < neff[:, None]
-            if bool(walked.any()):
-                k1["ckpt"] = max(k1["ckpt"],
-                                 float((ckpt.abs() - pckpt.abs())[walked].abs().max()))
-            k1["flags"] += int(((ckpt < 0) != (pckpt < 0))[walked].sum())
-            k1["pixels"] += cfg.num_tiles * cfg.npix
-            k1["tiles"] += cfg.num_tiles
-            k1["ckpt_values"] += int(walked.sum()) * cfg.npix
-            del ptiles, pckpt
-        tiles_g = tiles.clone().requires_grad_(True)
-        img = rt.tiles_to_image(tiles_g, cfg)[:, :h, :w]
-        color = img[0:3] + img[5][None] * mapper._bg[:, None, None]
-        ref_stats = mapper._gt_stats[i]
-        loss = (1.0 - lam) * losses.l1_loss(color, gt) + lam * (
-            1.0 - losses.ssim(color, gt, ref_stats=ref_stats))
-        (g_tiles,) = torch.autograd.grad(loss, tiles_g)
-        bwd_args = (inst, binned.sorted_start, binned.cnt_allowed, g_tiles.contiguous(),
-                    tiles, ckpt, cfg)
-        n = table.shape[1]
-        with torch.no_grad():
-            d_k = rt.composite_tiles_bwd(*bwd_args, n, dg)
-            d_p = rt.scatter_instance_grads(rt.composite_tiles_bwd_plain(*bwd_args, dg), n, dg)
-            k2 = max(k2, max(scaled_err(d_k[c], d_p[c]) for c in range(10)))
+        color = None
+
+        def image_loss_cotangent(tiles, i=i, gt=gt):
+            nonlocal color
+            tiles_g = tiles.clone().requires_grad_(True)
+            img = rt.tiles_to_image(tiles_g, cfg)[:, :h, :w]
+            color = img[0:3] + img[5][None] * mapper._bg[:, None, None]
+            loss = (1.0 - lam) * losses.l1_loss(color, gt) + lam * (
+                1.0 - losses.ssim(color, gt, ref_stats=mapper._gt_stats[i]))
+            return torch.autograd.grad(loss, tiles_g)[0]
+
+        d_k, d_p, err, _ = tile_kernel_parity(table, binned, cfg, image_loss_cotangent, dg, k1)
+        k2 = max(k2, err)
         leaves = {"xyz": p.xyz, "scaling": p.scaling, "rotation": p.rotation,
                   "opacity": p.opacity, "features_dc": p.features_dc}
         gk = torch.autograd.grad(table, list(leaves.values()), d_k, retain_graph=True)
         gp = torch.autograd.grad(table, list(leaves.values()), d_p)
         for name, a, b in zip(leaves, gk, gp):
             param_err[name] = max(param_err.get(name, 0.0), scaled_err(a, b))
-        del tiles, ckpt, d_k, d_p, table, pre, inst
+        del d_k, d_p, table, pre
         # K3 on the stacks the step and the staging blur: ssim against the
         # cached GT statistics blurs [a, a^2, ab] (9 slices, its VJP the
         # reversed taps), ssim_ref_stats blurs [b, b^2] (6 slices)
@@ -610,17 +695,11 @@ def map_kernel_parity(mapper, dev, size=(MAP_W, MAP_H)):
                        "k3_stacks": {k: list(v.shape) for k, v in stacks.items()}})
         del stacks, x, g, vjp
     out = {"views": shapes, "capacity": p.capacity, "max_instances": st.max_instances,
-           "max_chunks_per_tile": st.max_chunks_per_tile,
-           "k1_max_scaled_err": k1["rows"], "k1_ncontrib_mismatch_pixels": k1["ncontrib"],
-           "pixels": k1["pixels"], "k1_neff_mismatch_tiles": k1["neff"], "tiles": k1["tiles"],
-           "ckpt_max_abs_err": k1["ckpt"], "ckpt_flag_flips": k1["flags"],
-           "ckpt_walked_values": k1["ckpt_values"], "k2_max_scaled_err": k2,
-           "k2_param_scaled_err": param_err, "k1_k2_tol": 1e-3,
+           "max_chunks_per_tile": st.max_chunks_per_tile, **k1_fields(k1),
+           "k2_max_scaled_err": k2, "k2_param_scaled_err": param_err, "k1_k2_tol": 1e-3,
            "k3_max_abs_err": k3, "k3_tol": 1e-5}
     assert views and all((v["width"], v["height"]) == size for v in shapes), out
-    assert k1["rows"] <= 1e-3 and k1["ckpt"] <= 1e-3, out
-    assert k1["ncontrib"] <= 1e-3 * k1["pixels"] and k1["neff"] <= 1e-3 * k1["tiles"], out
-    assert k1["flags"] <= 1e-3 * k1["ckpt_values"], out
+    check_k1(k1)
     assert k2 <= 1e-3 and max(param_err.values()) <= 1e-3, out
     assert max(k3.values()) <= 1e-5, out
     return out
@@ -637,14 +716,6 @@ def map_loop(frames, cfg, dev, profiled, counters):
     from gslivm_tpu_torch import pipeline
 
     mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
-
-    def uncounted(fn):
-        saved = [c.launches for c in counters.values()]
-        try:
-            return fn()
-        finally:
-            for c, n in zip(counters.values(), saved):
-                c.launches = n
 
     def adam_rows():
         """(every moment has `capacity` rows, any moment is non-zero)"""
@@ -675,7 +746,7 @@ def map_loop(frames, cfg, dev, profiled, counters):
                             "adam_moments_nonzero": live})
             capacity.append(mapper.params.capacity)
         if len(mapper.cameras) > kf:  # staged: its score before training on it
-            staged.append(uncounted(lambda: mapper.score_keyframe(kf)))
+            staged.append(uncounted(counters, lambda: mapper.score_keyframe(kf)))
         before = {k: c.launches for k, c in counters.items()}
         frame_losses = []
         for _ in range(MAP_ITERS):
@@ -696,9 +767,9 @@ def map_loop(frames, cfg, dev, profiled, counters):
     iter_ms = np.asarray([a.elapsed_time(b) for a, b in events])
     all_losses = torch.cat(losses_).numpy()
     assert np.isfinite(all_losses).all(), all_losses
-    prof = uncounted(lambda: profiled(mapper.train_iteration))
+    prof = uncounted(counters, lambda: profiled(mapper.train_iteration))
 
-    final = uncounted(lambda: torch.stack([mapper.score_keyframe(i)
+    final = uncounted(counters, lambda: torch.stack([mapper.score_keyframe(i)
                                            for i in range(len(mapper.cameras))]))
     final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
     gaussians, voxels = int(mapper.params.n_active), len(mapper.registry)
@@ -708,14 +779,14 @@ def map_loop(frames, cfg, dev, profiled, counters):
     with torch.no_grad():
         cut = float(mapper.params.get_opacity()[:gaussians, 0].quantile(0.05))
     moments_live = adam_rows()[1]
-    dropped = uncounted(lambda: mapper.prune_map(min_opacity=cut))
+    dropped = uncounted(counters, lambda: mapper.prune_map(min_opacity=cut))
     rows_after_prune = adam_rows()[0]
-    after = uncounted(lambda: torch.stack([mapper.train_iteration().loss
+    after = uncounted(counters, lambda: torch.stack([mapper.train_iteration().loss
                                            for _ in range(MAP_AFTER_PRUNE)]).cpu().numpy())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # before the plain versions' buffers
     # the loop's kernels against their plain versions at its own shapes,
     # capacity and budgets
-    kernel_parity = uncounted(lambda: map_kernel_parity(mapper, dev))
+    kernel_parity = uncounted(counters, lambda: map_kernel_parity(mapper, dev))
     stage = {k: [f[k] * 1e3 for f in ingest] for k in ingest[0]}
     out = {
         "config": {"frames": len(frames), "width": MAP_W, "height": MAP_H,
@@ -822,14 +893,6 @@ def livo_serial(stream, cfg, dev, profiled, counters):
     fe = livo_frontend(stream, cfg, dev)
     mapper = pipeline.IncrementalMapper(cfg, bootstrap_points=MAP_BOOTSTRAP, device=dev)
 
-    def uncounted(fn):
-        saved = [c.launches for c in counters.values()]
-        try:
-            return fn()
-        finally:
-            for c, n in zip(counters.values(), saved):
-                c.launches = n
-
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -861,7 +924,7 @@ def livo_serial(stream, cfg, dev, profiled, counters):
                                 "to": mapper.params.capacity})
                 capacity.append(mapper.params.capacity)
             if len(mapper.cameras) > kf:  # staged: its score before training on it
-                staged.append(uncounted(lambda: mapper.score_keyframe(kf)))
+                staged.append(uncounted(counters, lambda: mapper.score_keyframe(kf)))
                 torch.cuda.synchronize()
             t2 = time.perf_counter()
             t_probe += t2 - t1
@@ -883,12 +946,13 @@ def livo_serial(stream, cfg, dev, profiled, counters):
     iter_ms = np.asarray([a.elapsed_time(b) for a, b in events])
     all_losses = torch.cat(losses_).numpy()
     assert np.isfinite(all_losses).all(), all_losses
-    prof = uncounted(lambda: profiled(mapper.train_iteration))
-    final = uncounted(lambda: torch.stack([mapper.score_keyframe(i)
+    prof = uncounted(counters, lambda: profiled(mapper.train_iteration))
+    final = uncounted(counters, lambda: torch.stack([mapper.score_keyframe(i)
                                            for i in range(len(mapper.cameras))]))
     final, staged = final.cpu().numpy(), torch.stack(staged).cpu().numpy()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    kernel_parity = uncounted(lambda: map_kernel_parity(mapper, dev, (LIVO_W, LIVO_H)))
+    kernel_parity = uncounted(counters,
+                              lambda: map_kernel_parity(mapper, dev, (LIVO_W, LIVO_H)))
     est, gt = np.asarray(est), np.asarray(gt)
     ate = float(np.sqrt(np.mean(np.sum((est - gt) ** 2, axis=1))))
     stage_ms = {k: [st.get(k, 0.0) * 1e3 for st in stages] for k in fe.stage_seconds}
@@ -1863,12 +1927,299 @@ def run_bag_check(bag: str, ds: str, common: str, want, gt_positions, dev):
     return out
 
 
+def profiled(fn):
+    """Wall time, device busy time, idle share, launches and the top
+    kernels by device time of one fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side ranges of user annotations (e.g. Adam's step) span
+    # kernels that are listed on their own, so they are left out
+    kernels_us = sorted(
+        ((getattr(e, "self_device_time_total", 0), e.key, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)), reverse=True)
+    busy_ms = sum(us for us, _, _ in kernels_us) / 1e3
+    # PyTorch's index_add_ (and index_copy_) kernels: indexFunc*Index
+    index_add = [(us, c) for us, k, c in kernels_us if "indexFunc" in k]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1.0 - busy_ms / wall_ms,
+                launches=sum(c for _, _, c in kernels_us),
+                index_add={"calls": sum(c for _, c in index_add),
+                           "device_ms": sum(us for us, _ in index_add) / 1e3},
+                top=[{"kernel": k[:100], "device_ms": us / 1e3, "calls": c}
+                     for us, k, c in kernels_us[:12]])
+
+
+def progress(*parts):
+    """A tool's progress lines, on stderr (stdout holds the phases' JSON)."""
+    print(*parts, file=sys.stderr, flush=True)
+
+
+def counted(counters, fn):
+    """fn() with every kernel's launch counter set to 0 just before it;
+    returns (fn's result, the launches by kernel read just after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def uncounted(counters, fn):
+    """fn(), its launches taken back out of every kernel's counter."""
+    saved = [c.launches for c in counters.values()]
+    try:
+        return fn()
+    finally:
+        for c, n in zip(counters.values(), saved):
+            c.launches = n
+
+
+def quality_phase(dev, profiled, counters) -> tuple[dict, dict]:
+    """tools/quality_bench at the JAX record's settings: overflow 0 at every
+    curve point, every loss finite, the tool's 25 dB floor; beside it the
+    JAX reference's quality (QUALITY_r05.json). The idle share of training
+    is estimated from QUALITY_PROFILE_ITERS more iterations of the trained
+    map under the profiler (not counted): 1 - their device busy ms per
+    iteration x iterations / the run's train seconds. K1, K2 and K3 are
+    held against their plain versions on the trained map (not counted)."""
+    import torch
+
+    from gslivm_tpu_torch.tools import quality_bench
+
+    args = quality_bench.build_argparser().parse_args(QUALITY_ARGV)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()  # what earlier phases keep alive
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (result, info), launches = counted(
+        counters, lambda: quality_bench.run(args, device=dev, log=progress))
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mapper = info.pop("mapper")
+    # K1, K2 and K3 against their plain versions at the trained map's
+    # capacity, refitted budgets and views (not counted)
+    kernel_parity = uncounted(
+        counters, lambda: map_kernel_parity(mapper, dev, (args.width, args.height)))
+    window = uncounted(counters, lambda: profiled(
+        lambda: [mapper.train_iteration() for _ in range(QUALITY_PROFILE_ITERS)]))
+    busy_per_iter = window["device_busy_ms"] / QUALITY_PROFILE_ITERS
+    with open(QUALITY_RECORD) as f:
+        record = json.load(f)
+    fields = {**result, "seconds": seconds, "ingest_s": info["ingest_s"],
+              "train_seconds": info["train_s"], "curve": info["curve"],
+              "prunes": info["prunes"], "budget_refits": info["budget_refits"],
+              "overflow_escalations": info["overflow_escalations"],
+              "budget_events": info["budget_events"],
+              "overflowed_iters": info["overflowed_iters"],
+              "nonfinite_losses": info["nonfinite_losses"],
+              "gaussians_final": info["gaussians_final"], "capacity": info["capacity"],
+              "settings_final": info["settings"], "peak_memory_gb": peak_gb,
+              "memory_at_start_gb": mem0 / 1e9,
+              "train_idle_share_est":
+                  1.0 - busy_per_iter * args.iters / (info["train_s"] * 1e3),
+              "profile_window": {"iters": QUALITY_PROFILE_ITERS,
+                                 **{k: window[k] for k in ("wall_ms", "device_busy_ms",
+                                                           "idle_share", "launches")}},
+              "launches": launches, "kernel_parity": kernel_parity,
+              "jax_reference": {"source": "QUALITY_r05.json",
+                                **{k: record[k] for k in QUALITY_RECORD_KEYS}},
+              "psnr_gap_db": record["final_psnr"] - result["final_psnr"]}
+    quality_bench.check_floor(result)
+    assert info["nonfinite_losses"] == 0, fields
+    assert all(r.get("overflow", 0) == 0 for r in info["curve"]), info["curve"]
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3")), launches
+    return fields, launches
+
+
+def quality_diag_phase(dev, counters) -> tuple[dict, dict]:
+    """tools/quality_diag init (the GP-initialised map's keyframe PSNR) and
+    oracle (splats on the exact surfaces, DIAG_ORACLE_ITERS iterations,
+    then K1, K2 and K3 against their plain versions on its map, not
+    counted); pipeline is left out here, quality runs its flow."""
+    from gslivm_tpu_torch.tools import quality_diag
+
+    out, total = {}, {k: 0 for k in counters}
+    for argv in (["init"], ["oracle", "--iters", str(DIAG_ORACLE_ITERS)]):
+        args = quality_diag.build_argparser().parse_args(argv)
+        t0 = time.perf_counter()
+        (res, mapper), launches = counted(
+            counters, lambda a=args: quality_diag.run(a, device=dev, log=progress))
+        rows = {"init": res["init_psnr"], **({"final": res["final_psnr"]}
+                                             if "final_psnr" in res else {})}
+        summary = {tag: {"mean_psnr": float(np.mean([r["psnr"] for r in rs])),
+                         "min_psnr": float(np.min([r["psnr"] for r in rs])),
+                         "max_psnr": float(np.max([r["psnr"] for r in rs])),
+                         "mean_ssim": float(np.mean([r["ssim"] for r in rs])),
+                         "per_keyframe_psnr": [r["psnr"] for r in rs]}
+                   for tag, rs in rows.items()}
+        out[argv[0]] = {"seconds": time.perf_counter() - t0, "gaussians": res["gaussians"],
+                        "setup_s": res["setup_s"], **summary, "launches": launches,
+                        **{k: res[k] for k in ("psnr_curve", "iters", "train_s",
+                                               "iters_per_s") if k in res}}
+        assert all(np.isfinite(s["mean_psnr"]) for s in summary.values()), out
+        assert launches["K1"] > 0 and launches["K3"] > 0, launches
+        for k in total:
+            total[k] += launches[k]
+        if argv[0] == "oracle":  # the kernels at the planted map's shapes (not counted)
+            size = (args.width, args.height)
+            out["oracle"]["kernel_parity"] = uncounted(
+                counters, lambda m=mapper: map_kernel_parity(m, dev, size))
+        del mapper
+    assert out["oracle"]["launches"]["K2"] > 0, out
+    return out, total
+
+
+def loop_profile_phase(dev, counters) -> tuple[dict, dict]:
+    """tools/profile_iteration at its defaults (stages A, A2, B, D, C with
+    device busy time) and tools/profile_ingest (10 frames)."""
+    from gslivm_tpu_torch.tools import profile_ingest, profile_iteration
+
+    t0 = time.perf_counter()
+    it, l_it = counted(counters, lambda: profile_iteration.run(
+        profile_iteration.build_argparser().parse_args([]), device=dev, log=progress))
+    ing, l_ing = counted(counters, lambda: profile_ingest.run(
+        profile_ingest.build_argparser().parse_args([]), device=dev, log=progress))
+    assert all(l_it[k] > 0 for k in ("K1", "K2", "K3")), l_it
+    assert ing["split"]["total"] > 0 and ing["stages"]["untimed"] >= 0, ing
+    launches = {k: l_it[k] + l_ing[k] for k in counters}
+    return {"seconds": time.perf_counter() - t0, "iteration": it, "ingest": ing,
+            "launches": {"profile_iteration": l_it, "profile_ingest": l_ing}}, launches
+
+
+def sweep_loss_cotangent(tiles):
+    """The tile cotangent of exp_block's loss, sum(C^2) + 0.1 sum(A)."""
+    import torch
+
+    g = torch.zeros_like(tiles)
+    g[:, 0:3], g[:, 4] = 2.0 * tiles[:, 0:3], 0.1
+    return g
+
+
+def band_loss_cotangent(tiles):
+    """The tile cotangent of band_projection's loss, sum(C) + 0.1 sum(A)."""
+    import torch
+
+    g = torch.zeros_like(tiles)
+    g[:, 0:3], g[:, 4] = 1.0, 0.1
+    return g
+
+
+def blocks_phase(dev, counters) -> tuple[dict, dict]:
+    """tools/exp_block's sweep on the bench scene, then crosscheck_blocks
+    for every swept shape but (2, 2), with the tool's gates; then K1 and
+    K2 against their plain versions at each shape's fitted budgets. A
+    shape that fails, or overflows at its fitted budgets or in the
+    cross-check, fails the phase."""
+    from gslivm_tpu_torch.tools import crosscheck_blocks, exp_block
+
+    def run():
+        rows = exp_block.sweep(device=dev, log=progress)
+        bad = [r for r in rows if "failed" in r or r["overflow"]]
+        assert not bad, bad
+        args, cam = exp_block.bench_scene(device=dev)
+        checks = [crosscheck_blocks.crosscheck(bx, by, args, cam, log=progress)
+                  for bx, by in exp_block.BLOCKS if (bx, by) != crosscheck_blocks.REF_BLOCK]
+        assert all(c["overflow"] == [0, 0] for c in checks), checks
+        return rows, checks
+
+    t0 = time.perf_counter()
+    (rows, checks), launches = counted(counters, run)
+    assert launches["K1"] > 0 and launches["K2"] > 0, launches
+    plain = uncounted(counters, lambda: bench_kernel_parity(dev, [
+        ({"block": r["block"]},
+         {"max_instances": r["maxi"], "max_chunks_per_tile": r["mc"],
+          "block_x": r["block"][0], "block_y": r["block"][1]}) for r in rows],
+        sweep_loss_cotangent))
+    return {"seconds": time.perf_counter() - t0, "sweep": rows, "crosscheck": checks,
+            "kernel_parity": plain,
+            "gates": {"image_max_abs": crosscheck_blocks.IMAGE_TOL,
+                      "grad_rel": crosscheck_blocks.GRAD_TOL},
+            "launches": launches}, launches
+
+
+def bench_kernel_parity(dev, cases, cotangent) -> list[dict]:
+    """K1 and K2 against their plain versions on the bench scene of
+    exp_block and band_projection, once for each (fields, bin_tiles
+    keywords) of `cases`; K2 takes the tile cotangent `cotangent(tiles)`.
+    Gates as map_kernel_parity's. Returns a row for each case."""
+    import torch
+
+    from gslivm_tpu_torch.ops import rasterize_reference
+    from gslivm_tpu_torch.ops import rasterize_tiles as rt
+    from gslivm_tpu_torch.tools.exp_block import bench_scene
+
+    args, cam = bench_scene(device=dev)
+    with torch.no_grad():
+        pre = rasterize_reference.preprocess(*args, cam)
+    rows = []
+    for fields, kw in cases:
+        table, binned, cfg = rt.bin_tiles(pre, cam.width, cam.height, **kw)
+        k1 = dict.fromkeys(("rows", "ncontrib", "neff", "ckpt", "flags", "pixels", "tiles",
+                            "ckpt_values"), 0)
+        _, _, k2, _ = tile_kernel_parity(table, binned, cfg, cotangent, True, k1)
+        row = {**fields, "overflow": int(binned.overflow), "max_chunks": cfg.max_chunks,
+               **k1_fields(k1), "k2_max_scaled_err": k2, "k1_k2_tol": 1e-3}
+        rows.append(row)
+        assert row["overflow"] == 0 and k2 <= 1e-3, row
+        check_k1(k1)
+    return rows
+
+
+def projection_phase(dev, counters) -> tuple[dict, dict]:
+    """tools/band_projection for N in PROJECTION_DEVICES (the band's fwd+bwd
+    measured, the collectives computed over an assumed link rate; K1 and
+    K2 held against their plain versions at each band's shapes), and
+    tools/scaling_bench on one NCCL rank in this process (N = 1; larger N
+    reported as needing more cards)."""
+    from gslivm_tpu_torch.tools import band_projection, scaling_bench
+    from gslivm_tpu_torch.tools.multihost_demo import _free_port
+
+    t0 = time.perf_counter()
+    bands, l_band = counted(counters, lambda: band_projection.run(
+        device=dev, devices=PROJECTION_DEVICES, log=progress))
+    assert all(r["overflow"] == 0 for r in bands), bands
+    assert l_band["K1"] > 0 and l_band["K2"] > 0, l_band
+    band_parity = uncounted(counters, lambda: bench_kernel_parity(dev, [
+        ({"pixel_devices": n, "band_rows": geo["band_rows"]},
+         {"max_instances": geo["max_instances"], "max_chunks_per_tile": band_projection.MAXCH,
+          "capacity_slack": band_projection.SLACK, "block_x": band_projection.BLOCK[0],
+          "block_y": band_projection.BLOCK[1], "band_rows": geo["band_rows"],
+          "band_start": geo["band_start"]})
+        for n in PROJECTION_DEVICES for geo in [band_projection.band_geometry(n)]],
+        band_loss_cotangent))
+    sargs = scaling_bench.build_argparser().parse_args(SCALING_ARGV)
+    scaling, l_scale = counted(counters, lambda: scaling_bench.run_rank(
+        sargs, 0, 1, f"tcp://127.0.0.1:{_free_port()}", log=progress))
+    assert scaling[0]["devices"] == 1 and scaling[0]["overflow"] == 0, scaling
+    assert all("skipped" in r for r in scaling[1:]), scaling
+    assert all(l_scale[k] > 0 for k in ("K1", "K2", "K3")), l_scale
+    launches = {k: l_band[k] + l_scale[k] for k in counters}
+    return {"seconds": time.perf_counter() - t0, "band_projection": bands,
+            "band_kernel_parity": band_parity, "scaling_bench": scaling,
+            "launches": {"band_projection": l_band, "scaling_bench": l_scale}}, launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "gslivm_tpu_torch")):
+        print("chip_smoke: gslivm_tpu_torch/ is not beside this script; run it from "
+              "the root of a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from gslivm_tpu_torch import convert, kernels
@@ -1966,34 +2317,6 @@ def main() -> int:
                  **s} for o, s in zip(renders, scores)])
 
     # ---- profile: where one served view's device time goes -----------------
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled(fn):
-        """Wall time, device busy time, idle share, launches and the top
-        kernels by device time of one fn() under torch.profiler."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side ranges of user annotations (e.g. Adam's step) span
-        # kernels that are listed on their own, so they are left out
-        kernels_us = sorted(
-            ((getattr(e, "self_device_time_total", 0), e.key, e.count)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)), reverse=True)
-        busy_ms = sum(us for us, _, _ in kernels_us) / 1e3
-        # PyTorch's index_add_ (and index_copy_) kernels: indexFunc*Index
-        index_add = [(us, c) for us, k, c in kernels_us if "indexFunc" in k]
-        return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                    idle_share=1.0 - busy_ms / wall_ms,
-                    launches=sum(c for _, _, c in kernels_us),
-                    index_add={"calls": sum(c for _, c in index_add),
-                               "device_ms": sum(us for us, _ in index_add) / 1e3},
-                    top=[{"kernel": k[:100], "device_ms": us / 1e3, "calls": c}
-                         for us, k, c in kernels_us[:12]])
-
     with torch.no_grad():
         emit("profile", view=0, **profiled(lambda: metrics.image_pair_metrics(
             training.render_params(params, cams[0], bg, settings).color, refs[0]["color"])))
@@ -2477,6 +2800,19 @@ def main() -> int:
     # ---- gp_figure: the offline tool's GP on the card ----------------------
     emit("gp_figure", **gp_figure_check(dev))
 
+    # ---- the root tools: quality, quality_diag, loop_profile, blocks, projection
+    torch.cuda.empty_cache()
+    new_phases = {"quality": lambda: quality_phase(dev, profiled, counters),
+                  "quality_diag": lambda: quality_diag_phase(dev, counters),
+                  "loop_profile": lambda: loop_profile_phase(dev, counters),
+                  "blocks": lambda: blocks_phase(dev, counters),
+                  "projection": lambda: projection_phase(dev, counters)}
+    new_launches = {}
+    for name in NEW_PHASES:
+        fields, new_launches[name] = new_phases[name]()
+        emit(name, **fields)
+        torch.cuda.empty_cache()
+
     # ---- the kernels table ---------------------------------------------------
     k1_bound_by = "operations" if k1_flops / PEAK_F32 >= k1_bytes / PEAK_BYTES else "bytes"
     k1_mean, k1_plain_mean = float(np.mean(k1_ms)), float(np.mean(plain_ms))
@@ -2545,6 +2881,10 @@ def main() -> int:
         row["launches"] += shard_launches[key]
     for row in table[3:]:
         row["launches_shard"] = 0
+    for name in NEW_PHASES:
+        for row, key in zip(table, ("K1", "K2", "K3", None, None)):
+            row[f"launches_{name}"] = new_launches[name][key] if key else 0
+            row["launches"] += row[f"launches_{name}"]
     print(smi, flush=True)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2554,4 +2894,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    except Exception:  # report the failing phase with its traceback, then fail
+        traceback.print_exc()
+        print(f"chip_smoke: failed after phase {emit.last_phase!r}", file=sys.stderr,
+              flush=True)
+        rc = 1
+    sys.exit(rc)

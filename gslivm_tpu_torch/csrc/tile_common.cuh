@@ -9,10 +9,14 @@
 // arithmetic that decides them lives here once, written with
 // round-to-nearest intrinsics (__fmul_rn, __fadd_rn, __fsub_rn): nvcc may
 // contract a product and a sum into an FMA differently in two kernels, and
-// these intrinsics are never contracted. The exp is the hardware __expf
-// (ex2.approx of power * log2(e), flushing subnormal results to 0): the
-// plain PyTorch versions, which evaluate the same expressions without FMA
-// but with an IEEE exp, differ from the kernels by its rounding only.
+// these intrinsics are never contracted. The exp is CUDA's expf, the
+// function torch.exp calls for f32 on the card, so every pair's alpha and
+// its 1/255 acceptance test are bit-equal to the plain PyTorch versions'.
+// (The hardware __expf differs from it in the last bits, and a splat whose
+// alpha lies that close to 1/255 was then accepted by one and rejected by
+// the other: alpha x depth, 1e-3 of scale and more, at a pixel of low
+// coverage.) The kernels and the plain versions still differ in the order
+// of their sums and of the transmittance products.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,7 +65,7 @@ __device__ __forceinline__ Pair eval_pair(const Splat& s, float px, float py) {
                                __fmul_rn(__fmul_rn(s.c, r.dy), r.dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(s.b, r.dx), r.dy));
-  r.G = EXP ? __expf(power) : power;
+  r.G = EXP ? expf(power) : power;
   r.raw_alpha = __fmul_rn(s.o, r.G);
   r.alpha = fminf(0.99f, r.raw_alpha);
   r.accepted = power <= 0.f && r.alpha >= TILE_MIN_ALPHA;

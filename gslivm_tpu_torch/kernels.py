@@ -10,10 +10,11 @@ at import time: the first wrapper that launches a kernel on a CUDA tensor
 builds it, or a caller builds every kernel at once with `build()`, which
 runs one nvcc per source in parallel.
 
-Flags: -O3, no --use_fast_math (fast division and flushed denormals
-everywhere would move the 1/255 alpha and 1e-4 transmittance decisions of
-the tile kernels; their one fast operation, the exp, is named in
-`csrc/tile_common.cuh`); nvcc's default FMA contraction is kept.
+Flags: -O3, no --use_fast_math (fast division, a fast exp and flushed
+denormals would move the 1/255 alpha and 1e-4 transmittance decisions of
+the tile kernels away from the plain versions'; `csrc/tile_common.cuh`
+says how the kernels keep them equal); nvcc's default FMA contraction is
+kept.
 """
 
 from __future__ import annotations

@@ -21,8 +21,9 @@ The rank layout is row-major, rank = gauss_index * n_pixel + pixel_index,
 as the JAX mesh's device array. Collectives run on gloo for CPU tensors
 and on NCCL for CUDA tensors; the step refuses a shard whose device does
 not match the group's backend. Gradients follow collectives.py's
-convention: every rank backpropagates loss / world, and the shard's
-gradient is summed over the pixel axis, which holds copies of it.
+convention: every rank of the mesh backpropagates loss / (the mesh's
+ranks), and the shard's gradient is summed over the pixel axis, which
+holds copies of it.
 """
 
 from __future__ import annotations
@@ -71,18 +72,24 @@ def init_process_group(device, rank: int, world: int, init_method: str,
 
 
 def make_mesh(world: int | None = None, gauss_axis: int | None = None):
-    """The ("gauss", "pixel") DeviceMesh of the default group's ranks, row-
-    major; by default 2 gauss rows when the world is even and >= 4."""
-    from torch.distributed.device_mesh import init_device_mesh  # noqa: PLC0415
+    """The ("gauss", "pixel") DeviceMesh of the default group's first
+    `world` ranks (all by default), row-major; by default 2 gauss rows when
+    the mesh is even and >= 4 ranks. Every rank of the default group calls
+    it; a rank past `world` holds no coordinate in the mesh and takes no
+    part in its steps."""
+    from torch.distributed.device_mesh import DeviceMesh  # noqa: PLC0415
 
-    world = dist.get_world_size() if world is None else world
+    total = dist.get_world_size()
+    world = total if world is None else world
+    if not 0 < world <= total:
+        raise ValueError(f"a mesh of {world} ranks in a world of {total}")
     if gauss_axis is None:
         gauss_axis = 2 if world % 2 == 0 and world >= 4 else 1
     if world % gauss_axis:
         raise ValueError(f"gauss axis {gauss_axis} does not divide world {world}")
     device_type = {v: k for k, v in BACKENDS.items()}[dist.get_backend()]
-    return init_device_mesh(device_type, (gauss_axis, world // gauss_axis),
-                            mesh_dim_names=AXES)
+    return DeviceMesh(device_type, torch.arange(world).reshape(gauss_axis, world // gauss_axis),
+                      mesh_dim_names=AXES)
 
 
 class _Axis(NamedTuple):
@@ -354,7 +361,7 @@ def sharded_train_step(
         shard, mesh, cameras, gt_images, simi, bg_color, opt_params, renderer=renderer,
         max_instances=max_instances, block=block, n_history_pairs=n_history_pairs,
         exchange_slack=exchange_slack)
-    (total / dist.get_world_size()).backward()
+    (total / mesh.size()).backward()
     pixel = mesh_axis(mesh, "pixel")
     for f in FIELDS:
         t = getattr(shard, f)

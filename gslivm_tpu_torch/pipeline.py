@@ -503,11 +503,12 @@ class IncrementalMapper:
 
     @torch.no_grad()
     def score_keyframe(self, index: int) -> torch.Tensor:
-        """[PSNR, SSIM] of keyframe `index`'s render against its ground
-        truth, on the device (no host read)."""
+        """[PSNR, SSIM, mean acc] of keyframe `index`'s render against its
+        ground truth, on the device (no host read)."""
         out = self.render_keyframe(index)
         gt = self._gt_device[index]
-        return torch.stack([loss_ops.psnr(out.color, gt), loss_ops.ssim(out.color, gt)])
+        return torch.stack([loss_ops.psnr(out.color, gt), loss_ops.ssim(out.color, gt),
+                            out.acc.mean()])
 
     @torch.no_grad()
     def evaluate(self) -> dict:

@@ -24,4 +24,13 @@ colormap; images read by the port's PNG and JPEG decoders), `sbs_video`
 VideoWriter, the port's one use of cv2) and `gp_figure` (the voxel GP on
 one cell: `compute` on the card, then the plots). matplotlib is imported
 only where a plot is drawn; the card machine has none.
+
+The root tools that drive the mapper and the rasterizer, twins of the
+repo's `tools/` scripts with their flags: `quality_bench` (map quality at
+960x600 beside QUALITY_r05.json), `quality_diag` (init, pipeline,
+oracle), `profile_iteration` and `profile_ingest` (the mapper's loop by
+stage), `exp_block` (the supertile block-shape sweep), `crosscheck_blocks`
+(a shape against 2x2), `band_projection` (the pixel axis projected from
+one card) and `scaling_bench` (the sharded step over mesh sizes). Those
+that time by CUDA events need a card; the others take `--cpu`.
 """

@@ -101,9 +101,12 @@ def load_state(path, device):
     return params, cams, st["gt"].to(device), simi
 
 
-def demo_scene(n: int, width: int, height: int, device, seed: int = 0):
+def demo_scene(n: int, width: int, height: int, device, seed: int = 0,
+               capacity: int | None = None):
     """The JAX demo's scene: n gaussians around (0, 0, 5) in front of one
-    camera at the origin, random ground truth, no simi anchors."""
+    camera at the origin, random ground truth, no simi anchors; the map's
+    capacity is n unless given (scaling_bench pads to a power of two, as
+    the JAX tool does)."""
     from gslivm_tpu_torch.models import gaussian_model as gm  # noqa: PLC0415
     from gslivm_tpu_torch.models import training  # noqa: PLC0415
     from gslivm_tpu_torch.models.cameras import make_camera  # noqa: PLC0415
@@ -117,7 +120,7 @@ def demo_scene(n: int, width: int, height: int, device, seed: int = 0):
                           rgb=t(rng.uniform(0, 255, (n, 3))),
                           cov=t(np.tile(np.eye(3)[None] * 0.002, (n, 1, 1))),
                           mask=torch.ones(n, dtype=torch.bool, device=device))
-    params = gm.create_from_points(batch, 3.0, capacity=n)
+    params = gm.create_from_points(batch, 3.0, capacity=capacity or n)
     cam = make_camera(np.eye(3), np.zeros(3), width, height, fovx=1.0,
                       fovy=1.0 * height / width, device=device)
     gt = t(rng.uniform(size=(1, 3, height, width)))
@@ -228,34 +231,27 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(args, argv) -> int:
-    """Start args.nproc ranks of this script on a localhost rendezvous; join
-    them within args.timeout (plus start-up), killing every rank if one
-    fails or the time runs out. Returns 0 when every rank exited 0."""
+def spawn_ranks(module: str, argv, nproc: int, timeout: float, rank_args) -> int:
+    """Start nproc ranks of `python -m module *argv *rank_args(rank, init)`
+    on one localhost rendezvous (init: its tcp:// address); join them
+    within `timeout` (plus start-up), killing every rank if one fails or
+    the time runs out. Each rank's stderr tail is printed when it fails.
+    Returns 0 when every rank exited 0."""
     init = f"tcp://127.0.0.1:{_free_port()}"
-    rest, skip = [], False
-    for a in argv:  # drop --nproc N
-        if skip:
-            skip = False
-        elif a == "--nproc":
-            skip = True
-        elif not a.startswith("--nproc="):
-            rest.append(a)
-    cmd = [sys.executable, "-m", "gslivm_tpu_torch.tools.multihost_demo", *rest,
-           "--world", str(args.nproc), "--init-method", init]
+    cmd = [sys.executable, "-m", module, *argv]
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p)}
-    logs = [tempfile.TemporaryFile("w+") for _ in range(args.nproc)]
-    procs = [subprocess.Popen([*cmd, "--rank", str(r)], env=env, cwd=os.getcwd(),
+    logs = [tempfile.TemporaryFile("w+") for _ in range(nproc)]
+    procs = [subprocess.Popen([*cmd, *rank_args(r, init)], env=env, cwd=os.getcwd(),
                               stderr=log, text=True)
              for r, log in enumerate(logs)]
-    deadline = time.monotonic() + args.timeout + 60.0
+    deadline = time.monotonic() + timeout + 60.0
     rc = 0
     try:
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"ranks did not finish within {args.timeout + 60.0:.0f} s")
+                raise TimeoutError(f"ranks did not finish within {timeout + 60.0:.0f} s")
             if any(p.poll() not in (None, 0) for p in procs):
                 break
             time.sleep(0.05)
@@ -271,6 +267,22 @@ def spawn(args, argv) -> int:
                 sys.stderr.write(f"rank {r} exited {p.returncode}:\n{log.read()[-4000:]}\n")
             log.close()
     return rc
+
+
+def spawn(args, argv) -> int:
+    """Start args.nproc ranks of this script (spawn_ranks, each with
+    --world, --init-method and its --rank)."""
+    rest, skip = [], False
+    for a in argv:  # drop --nproc N
+        if skip:
+            skip = False
+        elif a == "--nproc":
+            skip = True
+        elif not a.startswith("--nproc="):
+            rest.append(a)
+    return spawn_ranks("gslivm_tpu_torch.tools.multihost_demo", rest, args.nproc,
+                       args.timeout, lambda r, init: ["--world", str(args.nproc),
+                                                      "--init-method", init, "--rank", str(r)])
 
 
 def main(argv=None) -> int:

@@ -30,7 +30,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 
 
-def _cuda(device, args) -> torch.device:
+def cuda_device(device, args=()) -> torch.device:
+    """`device` as a CUDA torch.device; raises for any other device and for
+    a CPU tensor among `args`."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"device timing needs a CUDA device, not {dev}")
@@ -53,7 +55,7 @@ def device_time_ms(fn, *args, reps: int = 20, device="cuda") -> float:
     """Mean time in ms of fn(*args) over `reps` calls after one warm-up
     call, by CUDA events. Raises for a non-CUDA device and for CPU tensor
     args."""
-    dev = _cuda(device, args)
+    dev = cuda_device(device, args)
     with torch.cuda.device(dev):
         fn(*args)
 
@@ -68,7 +70,7 @@ def graph_time_ms(fn, *args, reps: int = 100, device="cuda") -> float:
     """Mean device time in ms of fn(*args): `reps` calls captured in one
     CUDA graph, replayed once (after a warm-up replay) between CUDA events.
     fn must launch its work on the current stream and not synchronise."""
-    dev = _cuda(device, args)
+    dev = cuda_device(device, args)
     with torch.cuda.device(dev):
         fn(*args)
         side = torch.cuda.Stream()
@@ -91,7 +93,7 @@ def device_busy_ms(fn, *args, reps: int = 3, device="cuda") -> dict:
     call (torch.profiler over `reps` calls after one warm-up call)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
-    dev = _cuda(device, args)
+    dev = cuda_device(device, args)
     with torch.cuda.device(dev):
         fn(*args)
         torch.cuda.synchronize()

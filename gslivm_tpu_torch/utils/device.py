@@ -16,3 +16,9 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name (torch.cuda.get_device_name) or the device's type, as
+    the tools print it beside their numbers."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)

@@ -33,6 +33,11 @@ def cuda():
     return torch.device("cuda")
 
 
+# the supertiles binning takes: 1x1, the 2x2 default, and every shape of
+# the block-shape sweep (tools/exp_block.py)
+BLOCKS = [(1, 1), (2, 2), (2, 4), (3, 2), (2, 3), (4, 2)]
+
+
 def _scene(rng, n, device):
     q = rng.normal(size=(n, 4))
     arrs = (rng.normal(0, 1.0, (n, 3)) + [0, 0, 4.0],
@@ -43,7 +48,7 @@ def _scene(rng, n, device):
     return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrs]
 
 
-@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("block", BLOCKS)
 def test_k1_matches_plain_version(cuda, block):
     rng = np.random.default_rng(0)
     w, h = 160, 120  # the last supertile row overhangs the image
@@ -201,7 +206,7 @@ def _grads_match_naive(cam, scene, block):
         assert scale > 0 and float((a - b).abs().max()) <= 1e-3 * scale, name
 
 
-@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("block", BLOCKS)
 def test_k1_checkpoints_and_k2_match_plain_versions(cuda, block):
     rng = np.random.default_rng(4)
     w, h = 160, 120  # the last supertile row overhangs the image
@@ -320,7 +325,7 @@ def _crafted_tiles(rng, block, n, opac, clamped=False):
     return feat[gid], start, nch, cnt, cfg, np.bincount(gid, minlength=n)
 
 
-@pytest.mark.parametrize("block", [(1, 1), (2, 2), (2, 4)])
+@pytest.mark.parametrize("block", BLOCKS)
 @pytest.mark.parametrize("case", ["rect_edges", "done_mid_chunk", "alpha_clamped"])
 def test_k1_k2_on_crafted_tiles(cuda, case, block):
     """K1 (rows, n_contrib, neff, checkpoints) and K2 against their plain
@@ -330,7 +335,7 @@ def test_k1_k2_on_crafted_tiles(cuda, case, block):
     summed by K2's atomics. Gates as in the full-size checks."""
     rng = np.random.default_rng({"rect_edges": 30, "done_mid_chunk": 31,
                                  "alpha_clamped": 32}[case])
-    n, opac = {"rect_edges": (400, (0.05, 0.4)), "done_mid_chunk": (600, (0.7, 0.98)),
+    n, opac = {"rect_edges": (400, (0.05, 0.4)), "done_mid_chunk": (1000, (0.7, 0.98)),
                "alpha_clamped": (400, (0.3, 0.9))}[case]
     inst_np, start, nch, cnt, cfg, mult = _crafted_tiles(
         rng, block, n, opac, clamped=case == "alpha_clamped")
@@ -351,6 +356,56 @@ def test_k1_k2_on_crafted_tiles(cuda, case, block):
     if case == "done_mid_chunk":
         # pixels stop inside a chunk: some blocks end their walk early
         assert bool((neff < nch.long()).any())
+    _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng, n)
+
+
+def test_k1_k2_take_the_plain_decisions_at_the_alpha_threshold(cuda):
+    """Each of 1,024 splats has, at its own pixel, a power in [-5, -1] and
+    an alpha within 2e-7 (relative, about two ulps) of the 1/255
+    acceptance threshold. K1 and K2 must accept or reject each such pair as
+    the plain versions do: n_contrib then agrees at every pixel and A,
+    which one flipped decision moves by about 1/255, agrees to rounding.
+    An exp that differs from torch.exp in its last bits (the hardware
+    __expf, whose error grows with |power|) flips some of these
+    decisions."""
+    F = rasterize_tiles
+    f32 = np.float32
+    rng = np.random.default_rng(40)
+    n_tiles, npix = 4, 256
+    n = n_tiles * npix
+    tile, j = np.repeat(np.arange(n_tiles), npix), np.tile(np.arange(npix), n_tiles)
+    px = ((tile % 2) * 16 + j % 16).astype(f32)
+    py = ((tile // 2) * 16 + j // 16).astype(f32)
+    a = c = rng.uniform(0.2, 0.6, n).astype(f32)
+    b = (a * rng.uniform(-0.05, 0.05, n)).astype(f32)
+    r, phi = np.sqrt(2.0 * rng.uniform(1, 5, n) / a), rng.uniform(0, 2 * np.pi, n)
+    x, y = (px + r * np.cos(phi)).astype(f32), (py + r * np.sin(phi)).astype(f32)
+    # the power at the splat's pixel, in the kernels' order of f32 operations
+    dx, dy = x - px, y - py
+    power = f32(-0.5) * (a * dx * dx + c * dy * dy) - b * dx * dy
+    o = (1.0 / 255.0 * (1.0 + rng.uniform(-2e-7, 2e-7, n)) / np.exp(power.astype(np.float64)))
+    feat = np.zeros((n, F.FEAT), f32)
+    for col, v in ((F._FX, x), (F._FY, y), (F._FA, a), (F._FB, b), (F._FC, c), (F._FO, o)):
+        feat[:, col] = v
+    feat[:, F._FR:F._FD + 1] = rng.uniform(0, 2, (n, 4))
+    feat[:, F._FID] = np.arange(n)
+    inst = torch.as_tensor(feat, device=cuda)
+    cnt = torch.full((n_tiles,), npix, dtype=torch.int32, device=cuda)
+    start = torch.arange(0, n, npix, dtype=torch.int32, device=cuda)
+    nch = (cnt + 127) // 128
+    cfg = F.TileConfig(grid_x=2, grid_y=2, max_chunks=8)
+    # the plain version's own alphas at these pairs straddle the threshold
+    t = {k: torch.as_tensor(v, device=cuda) for k, v in dict(a=a, b=b, c=c, dx=dx, dy=dy).items()}
+    G = torch.exp(-0.5 * (t["a"] * t["dx"] * t["dx"] + t["c"] * t["dy"] * t["dy"])
+                  - t["b"] * t["dx"] * t["dy"])
+    raw = inst[:, F._FO] * G
+    assert float((raw * 255.0 - 1.0).abs().max()) <= 5e-7 and float(inst[:, F._FO].max()) < 0.99
+    assert 0.2 * n < int((raw >= 1.0 / 255.0).sum()) < 0.8 * n
+    k, ck = F.composite_tiles(inst, start, nch, cnt, cfg, save_ckpt=True)
+    p, cp = F.composite_tiles_plain(inst, start, nch, cnt, cfg, save_ckpt=True)
+    flips = int((k[:, 6] != p[:, 6]).sum())
+    assert flips == 0, f"{flips} pixels' n_contrib differ"
+    assert float((k[:, :6] - p[:, :6]).abs().max()) <= 1e-5
     _k2_matches_plain(inst, start, cnt, k, ck, cfg, rng, n)
 
 
