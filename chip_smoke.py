@@ -197,6 +197,28 @@ projection (band_projection for N = 1, 2, 4, 8 with the NVLink rate it
 assumes, and scaling_bench on one NCCL rank in this process: N = 1, larger
 N reported as needing more cards).
 
+The stage profilers of the 1080p render and its losses, one phase,
+stages, its tool runs in a fresh process (late in this one the profiler
+drops the records of short windows), which sets the K1-K3 counters to 0
+just before them, reads them just after and hands them back:
+profile_stages on the bench scene at its budgets (6700*128 instances, 16
+chunks, slack 0.2, 2x2; overflow 0 asserted) in its forward
+cuts (preprocess, + binning, + feature pack, + fwd kernel, full fwd, the
+kernel-only and the FULL fwd+bwd) and its backward cuts (K1 with
+checkpoints, K2, + backward to the preprocessed fields, + backward to the
+five parameters), profile_binning's
+cuts inside bin_instances, microbench_losses (ssim, l1, image_loss, psnr
+and the F.conv2d SSIM at 3x1080x1920; the stacked SSIM against five
+separate blurs) and microbench_gridsample (the warp and three gathers at
+1080x1920, held against each other): each row's ms by CUDA events, device
+busy ms, kernels and the busy ms of K1, K2, K3 and the rest (a row whose
+profiler records are still not whole when profiled again fails the
+phase), with the FULL fwd+bwd's busy ms beside the blocks phase's (2,2)
+busy ms of the same run; then K1 and K2 against their plain versions at
+profile_stages' budgets and K3 on microbench_losses' [15, 1080, 1920]
+SSIM stack and on one [3, 1080, 1920] image (the separate chains' shape)
+in both tap orientations against blur_plain (not counted).
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels table as one JSON line (T1's and T2's `launches` count their tool
 runs, the path they belong to; K1-K3 also give `launches_tools`, their
@@ -204,8 +226,8 @@ launches in kernelcost and step_profile, and `launches_map`, their
 launches in the map loop, `launches_livo`, their launches in the
 livo loop, `launches_shard`, their launches in the one-rank sharded
 steps, and `launches_quality`, `launches_quality_diag`,
-`launches_loop_profile`, `launches_blocks` and `launches_projection`,
-their launches in those phases, each added into `launches` (0 for T1 and
+`launches_loop_profile`, `launches_blocks`, `launches_projection` and
+`launches_stages`, their launches in those phases, each added into `launches` (0 for T1 and
 T2); K1, K2, K3 and T2 carry their
 registers and blocks per SM and say where their times before the redesign
 stand, which this script does not measure), and last {"ok": true, "device":
@@ -263,7 +285,10 @@ above its staged mean, as in livo. gp_figure: 1e-3 of scale
 (map_parity's GP gate). blocks: crosscheck_blocks' own gates, color,
 depth and acc within max |diff| < 5e-4 and each of the five gradients
 within 2e-3 of the (2,2) gradient's max (tools/crosscheck_blocks.py).
-quality: the tool's 25 dB floor on the final PSNR.
+quality: the tool's 25 dB floor on the final PSNR. stages: overflow 0 at
+profile_stages' budgets; the grid-sample variants within 1e-6 of scale of
+each other; K1 and K2 at K1's and K2's gates above; K3 max abs <= 1e-5
+(k3_parity's gate).
 """
 
 from __future__ import annotations
@@ -361,7 +386,7 @@ PROJECTION_DEVICES = (1, 2, 4, 8)
 # scaling_bench on one NCCL rank: N = 1 runs, N = 2 and 4 are reported as
 # needing more cards
 SCALING_ARGV = ["--devices", "1", "2", "4", "--phases"]
-NEW_PHASES = ("quality", "quality_diag", "loop_profile", "blocks", "projection")
+NEW_PHASES = ("quality", "quality_diag", "loop_profile", "blocks", "projection", "stages")
 
 
 def emit(phase: str, **fields):
@@ -2210,6 +2235,97 @@ def projection_phase(dev, counters) -> tuple[dict, dict]:
             "launches": {"band_projection": l_band, "scaling_bench": l_scale}}, launches
 
 
+# the stage profilers' runs: (key, tool module, argv)
+STAGE_RUNS = (("profile_stages", "profile_stages", []),
+              ("profile_stages_bwd", "profile_stages", ["bwd"]),
+              ("profile_binning", "profile_binning", []),
+              ("microbench_losses", "microbench_losses", []),
+              ("microbench_losses_stack", "microbench_losses", ["stack"]),
+              ("microbench_gridsample", "microbench_gridsample", []))
+
+
+def stages_child(out_path: str):
+    """The stages phase's tool runs, in the fresh process stages_phase
+    starts: the profiler drops records of short windows late in a long
+    process. Writes the results and the K1-K3 launches, counted around the
+    runs, to out_path as JSON."""
+    import importlib
+
+    import torch
+
+    from gslivm_tpu_torch.ops import blur, rasterize_tiles
+
+    counters = {"K1": rasterize_tiles.composite_tiles, "K2": rasterize_tiles.composite_tiles_bwd,
+                "K3": blur.blur_cuda}
+    dev = torch.device("cuda")
+
+    def run():
+        out = {}
+        for key, name, argv in STAGE_RUNS:
+            tool = importlib.import_module(f"gslivm_tpu_torch.tools.{name}")
+            out[key] = tool.run(tool.build_argparser().parse_args(argv), device=dev,
+                                log=progress)
+        return out
+
+    res, launches = counted(counters, run)
+    with open(out_path, "w") as f:
+        json.dump({"results": res, "launches": launches}, f)
+
+
+def stages_phase(dev, counters, blocks) -> tuple[dict, dict]:
+    """The stage profilers at their defaults (STAGE_RUNS), in a fresh
+    process (stages_child), which counts their K1-K3 launches; no row may
+    stay lost; the FULL fwd+bwd busy ms beside `blocks`' (2,2) busy ms of
+    this process; then K1/K2 at profile_stages' budgets and K3 on
+    microbench_losses' SSIM stack and one of its images against their
+    plain versions here (not counted)."""
+    import torch
+
+    from gslivm_tpu_torch.ops import blur, losses
+    from gslivm_tpu_torch.tools import microbench_losses, profile_stages
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "stages.json")
+        cmd = [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.stages_child(sys.argv[1])",
+               out]
+        proc = subprocess.run(cmd, cwd=ROOT, stdout=subprocess.PIPE, text=True, timeout=900)
+        assert proc.returncode == 0, f"the stages child exited {proc.returncode}"
+        with open(out) as f:
+            child = json.load(f)
+    res, launches = child["results"], child["launches"]
+    assert res["profile_stages"]["stats"]["overflow"] == 0, res["profile_stages"]["stats"]
+    lost = [(key, r["name"]) for key, out in res.items()
+            for r in out.get("cuts", out.get("rows", [])) if r["lost"]]
+    assert not lost, f"the profiler lost these rows' records: {lost}"
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K3")), launches
+    full = next(r for r in res["profile_stages"]["cuts"] if r["name"] == "FULL fwd+bwd")
+    ref = next(r for r in blocks["sweep"] if r["block"] == [2, 2])
+    kernel_parity = uncounted(counters, lambda: bench_kernel_parity(
+        dev, [({"tool": "profile_stages"}, profile_stages.BUDGETS)], sweep_loss_cotangent))
+
+    def k3_check():
+        # the stacked SSIM's [15, H, W] and the separate chains' [3, H, W]
+        # (a shorter stack takes another strip height)
+        imgs = microbench_losses.images(device=dev)
+        taps = losses.gaussian_1d()
+        out = []
+        for x in (microbench_losses.ssim_stack(*imgs), imgs[0]):
+            errs = {}
+            for name, t in (("taps", taps), ("reversed", taps[::-1].copy())):
+                errs[name] = float((blur.blur_cuda(x, t) - blur.blur_plain(x, t)).abs().max())
+            out.append({"shape": list(x.shape), "max_abs_err": errs, "tol": 1e-5})
+        return out
+
+    k3 = uncounted(counters, k3_check)
+    assert all(max(c["max_abs_err"].values()) <= 1e-5 for c in k3), k3
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0, **res,
+            "full_fwd_bwd_busy_ms": full["busy_ms"], "blocks_2x2_busy_ms": ref["busy_ms"],
+            "full_over_blocks_busy": full["busy_ms"] / ref["busy_ms"],
+            "kernel_parity": kernel_parity, "k3_parity": k3, "launches": launches}, launches
+
+
 def main() -> int:
     import torch
 
@@ -2800,17 +2916,19 @@ def main() -> int:
     # ---- gp_figure: the offline tool's GP on the card ----------------------
     emit("gp_figure", **gp_figure_check(dev))
 
-    # ---- the root tools: quality, quality_diag, loop_profile, blocks, projection
+    # ---- the root tools: quality, quality_diag, loop_profile, blocks,
+    # projection, and the stage profilers: stages
     torch.cuda.empty_cache()
     new_phases = {"quality": lambda: quality_phase(dev, profiled, counters),
                   "quality_diag": lambda: quality_diag_phase(dev, counters),
                   "loop_profile": lambda: loop_profile_phase(dev, counters),
                   "blocks": lambda: blocks_phase(dev, counters),
-                  "projection": lambda: projection_phase(dev, counters)}
-    new_launches = {}
+                  "projection": lambda: projection_phase(dev, counters),
+                  "stages": lambda: stages_phase(dev, counters, new_fields["blocks"])}
+    new_fields, new_launches = {}, {}
     for name in NEW_PHASES:
-        fields, new_launches[name] = new_phases[name]()
-        emit(name, **fields)
+        new_fields[name], new_launches[name] = new_phases[name]()
+        emit(name, **new_fields[name])
         torch.cuda.empty_cache()
 
     # ---- the kernels table ---------------------------------------------------

@@ -65,9 +65,8 @@ def filter_sweep(sweep: LidarSweep, opts: CommonOptions = CommonOptions(),
     Decimation keeps RAW indices i % point_filter_num == 0 BEFORE the range
     cull (the reference's loop order — a culled point still advances i).
     The per-vendor time-UNIT normalization (Ouster ns, Robosense/Pandar
-    absolute stamps) happens at decode (the JAX package's
-    rosbag.decode_pointcloud2; not ported yet); rel_time
-    here is always seconds from t_begin."""
+    absolute stamps) happens at decode (rosbag.decode_pointcloud2);
+    rel_time here is always seconds from t_begin."""
     lt = lidar_type if lidar_type is not None else opts.lidar_type
     xyz, rel, inten = sweep.xyz, sweep.rel_time, sweep.intensity
     if lt in ("velodyne", "robosense", "pandar") and rel.size:

@@ -33,4 +33,12 @@ stage), `exp_block` (the supertile block-shape sweep), `crosscheck_blocks`
 (a shape against 2x2), `band_projection` (the pixel axis projected from
 one card) and `scaling_bench` (the sharded step over mesh sizes). Those
 that time by CUDA events need a card; the others take `--cpu`.
+
+The stage profilers, twins of the repo's tools of the same names, split
+the device time of the 1080p render and its losses into named stages:
+`profile_stages` (the render pipeline's cumulative cuts, forward and
+`bwd`), `profile_binning` (the stages inside `bin_instances`),
+`microbench_losses` (the image loss; K3 against the SSIM algebra) and
+`microbench_gridsample` (the delta-depth warp against three gathers).
+They need a card.
 """

@@ -74,15 +74,19 @@ def fitted_budgets(expansion: int, maxch: int) -> tuple[int, int]:
     return int(np.ceil(expansion * 1.08 / 128)) * 128, min(64, 2 * maxch)
 
 
-def loss_grad(cam, bx: int, by: int, maxi: int, mc: int):
+def sweep_loss(args, cam, **kw):
+    """sum((C - 0)^2) + 0.1 sum(A) of the tile render of the five
+    parameters `args`, with the rasterize_tiles keywords kw."""
+    out = rasterize_tiles(*args, cam, **kw)
+    return (out.color ** 2).sum() + 0.1 * out.acc.sum()
+
+
+def loss_grad(cam, **kw):
     """fn(means, scales, quats, opac, shs) -> the five gradients of
-    sum((C - 0)^2) + 0.1 sum(A), rendered at (bx, by) with those budgets."""
+    sweep_loss, rendered with the rasterize_tiles keywords kw."""
     def fn(*args):
         leaves = [a.detach().requires_grad_(True) for a in args]
-        out = rasterize_tiles(*leaves, cam, max_instances=maxi, block_x=bx, block_y=by,
-                              max_chunks_per_tile=mc)
-        loss = (out.color ** 2).sum() + 0.1 * out.acc.sum()
-        return torch.autograd.grad(loss, leaves)
+        return torch.autograd.grad(sweep_loss(leaves, cam, **kw), leaves)
     return fn
 
 
@@ -103,7 +107,8 @@ def sweep(device="cuda", reps: int = 20, log=print) -> list[dict]:
                 row["overflow"] = int(rasterize_tiles(
                     *args, cam, max_instances=maxi, block_x=bx, block_y=by,
                     max_chunks_per_tile=mc).overflow)
-            fn = loss_grad(cam, bx, by, maxi, mc)
+            fn = loss_grad(cam, max_instances=maxi, block_x=bx, block_y=by,
+                           max_chunks_per_tile=mc)
             row["ms"] = report(f"fwd+bwd ({bx},{by})", fn, *args, reps=reps, device=dev)
             row["busy_ms"] = device_busy_ms(fn, *args, reps=3, device=dev)["device_busy_ms"]
         except Exception as e:  # the sweep reports a failing shape and goes on

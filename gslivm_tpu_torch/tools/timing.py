@@ -13,7 +13,12 @@ allocator). Two refinements:
   time the host.
 - `device_busy_ms` sums the device time of the kernels the calls ran
   (torch.profiler), for work whose events time the host (an eager train
-  step issues thousands of small kernels).
+  step issues thousands of small kernels), and splits out the time of the
+  port's own kernels K1, K2 and K3 by name (`KERNEL_NAMES`).
+
+`profile_cuts` times a list of cuts both ways, the stage profilers' rows;
+for cumulative prefixes of a pipeline each row also gives its difference
+from the one before it, the stage it adds.
 
 Nothing is ever timed on the CPU.
 """
@@ -28,6 +33,9 @@ from ..utils.device import resolve_device
 # bytes/s and f32 flop/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# a substring of each hand-written kernel's name (csrc/*.cu), by which the
+# profiler's rows are split
+KERNEL_NAMES = {"K1": "tile_forward", "K2": "tile_backward", "K3": "blur"}
 
 
 def cuda_device(device, args=()) -> torch.device:
@@ -90,7 +98,15 @@ def graph_time_ms(fn, *args, reps: int = 100, device="cuda") -> float:
 
 def device_busy_ms(fn, *args, reps: int = 3, device="cuda") -> dict:
     """The device time of the kernels fn(*args) runs, and their count, per
-    call (torch.profiler over `reps` calls after one warm-up call)."""
+    call (torch.profiler over `reps` calls after one warm-up call);
+    `kernel_busy_ms` holds the part of it in each kernel of KERNEL_NAMES.
+
+    Late in a long process the profiler on the card drops records of
+    short windows (a window of a few kernels can read none), so a
+    measurement that needs them runs in a fresh process. `records_whole`
+    says whether the records can be whole: at least one kernel, and each
+    kernel name counted a multiple of `reps` times (the same calls launch
+    the same kernels)."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
     dev = cuda_device(device, args)
@@ -106,13 +122,61 @@ def device_busy_ms(fn, *args, reps: int = 3, device="cuda") -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
-    return {"device_busy_ms": sum(getattr(e, "self_device_time_total", 0)
-                                  for e in kernels) / 1e3 / reps,
-            "kernels_per_call": sum(e.count for e in kernels) / reps}
+
+    def busy(es):
+        return sum(getattr(e, "self_device_time_total", 0) for e in es) / 1e3 / reps
+
+    return {"device_busy_ms": busy(kernels),
+            "kernels_per_call": sum(e.count for e in kernels) / reps,
+            "kernel_busy_ms": {k: busy(e for e in kernels if name in e.key)
+                               for k, name in KERNEL_NAMES.items()},
+            "records_whole": bool(kernels) and all(e.count % reps == 0 for e in kernels)}
 
 
-def report(name: str, fn, *args, **kw) -> float:
-    """device_time_ms, printed as one line `name  ms`."""
+def report(name: str, fn, *args, log=print, **kw) -> float:
+    """device_time_ms, logged as one line `name  ms`."""
     ms = device_time_ms(fn, *args, **kw)
-    print(f"{name:52s} {ms:9.3f} ms", flush=True)
+    log(f"{name:52s} {ms:9.3f} ms")
     return ms
+
+
+def profile_cuts(cuts, reps: int = 20, device="cuda", log=print,
+                 cumulative: bool = True) -> list[dict]:
+    """One row for each (name, fn, args) of `cuts`: fn(*args)'s ms by CUDA
+    events over `reps` calls, its device busy ms and kernels per call, the
+    busy ms of K1, K2 and K3 in it and of the other kernels (`other_ms`);
+    for cumulative cuts also `d_ms` / `d_busy_ms`, its difference from the
+    row before (the cost of the stage the cut adds).
+
+    A row whose profiler records are not whole (device_busy_ms'
+    `records_whole`) is profiled once more; if they are still not whole
+    the row is `lost`: its busy numbers are None (and so is the next
+    row's `d_busy_ms`), and `kernels` is what the profiler kept."""
+    rows = []
+    for name, fn, args in cuts:
+        ms = report(name, fn, *args, reps=reps, device=device, log=log)
+        busy = device_busy_ms(fn, *args, device=device)
+        if not busy["records_whole"]:
+            log(f"{'':52s} records lost ({busy['kernels_per_call']:.2f} kernels a call "
+                "kept): profiling again")
+            busy = device_busy_ms(fn, *args, device=device)
+        lost = not busy["records_whole"]
+        row = {"name": name, "ms": ms, "lost": lost, "kernels": busy["kernels_per_call"],
+               "busy_ms": None if lost else busy["device_busy_ms"],
+               **{k: None if lost else v for k, v in busy["kernel_busy_ms"].items()}}
+        row["other_ms"] = None if lost else row["busy_ms"] - sum(busy["kernel_busy_ms"].values())
+        step = ""
+        if cumulative:
+            prev = rows[-1] if rows else {"ms": 0.0, "busy_ms": 0.0}
+            row["d_ms"] = ms - prev["ms"]
+            row["d_busy_ms"] = (None if lost or prev["busy_ms"] is None
+                                else row["busy_ms"] - prev["busy_ms"])
+            step = "" if row["d_busy_ms"] is None else f" ({row['d_busy_ms']:+.3f})"
+        if lost:
+            log(f"{'':52s} busy LOST: the profiler kept {row['kernels']:.2f} kernels a call")
+        else:
+            log(f"{'':52s} busy {row['busy_ms']:.3f} ms{step}, {row['kernels']:.0f} kernels; "
+                f"K1 {row['K1']:.3f} K2 {row['K2']:.3f} K3 {row['K3']:.3f} "
+                f"other {row['other_ms']:.3f} ms")
+        rows.append(row)
+    return rows

@@ -838,3 +838,53 @@ def test_remap_on_card_matches_the_cpu(cuda):
     card = imgproc.remap_linear(img.to(cuda), *(m.to(cuda) for m in maps))
     assert card.device.type == "cuda"
     assert torch.equal(card.cpu(), imgproc.remap_linear(img, *maps))
+
+
+def test_stage_profiler_cuts_on_card_match_the_cpu(cuda):
+    """profile_stages' cuts on a small bench scene through K1 and K2 against
+    the CPU's plain versions (loss, five gradients, the backward cuts,
+    1e-3 of scale: K1's and K2's gates); profile_binning's `+ sort` on the
+    card gives bin_instances' gid_sorted; microbench_gridsample's variants
+    agree on the card (its 1e-6 of scale)."""
+    from gslivm_tpu_torch.tools import exp_block, microbench_gridsample, profile_binning
+    from gslivm_tpu_torch.tools import profile_stages as ps
+
+    kw = {**ps.BUDGETS, "max_instances": 1 << 14}
+    (args_g, cam_g), (args_c, cam_c) = (exp_block.bench_scene(3000, 160, 96, d)
+                                        for d in (cuda, "cpu"))
+    assert _scaled(ps.full_loss(args_g, cam_g, kw).cpu(), ps.full_loss(args_c, cam_c, kw)) <= 1e-5
+    for fn in (ps.full_grads, ps.kernel_grads):
+        for g, c in zip(fn(args_g, cam_g, kw), fn(args_c, cam_c, kw)):
+            assert _scaled(g.cpu(), c) <= 1e-3, fn.__name__
+    before = rasterize_tiles.composite_tiles_bwd.launches
+    st_g, st_c = ps.bwd_state(args_g, cam_g, kw), ps.bwd_state(args_c, cam_c, kw)
+    for g, c in zip(ps.s_bwd_params(st_g), ps.s_bwd_params(st_c)):
+        assert _scaled(g.cpu(), c) <= 1e-3
+    assert rasterize_tiles.composite_tiles_bwd.launches == before + 1
+    with torch.no_grad():
+        pre = rasterize_reference.preprocess(*args_g, cam_g)
+    geo = profile_binning.Geometry(cam_g.width, cam_g.height, 1 << 14, *profile_binning.BLOCK)
+    b = ps.bin_pre(pre, cam_g, {**kw, "max_chunks_per_tile": profile_binning.MAXCH,
+                                "capacity_slack": profile_binning.SLACK})
+    cut = profile_binning.upto_sort(pre, geo)
+    assert torch.equal((cut["key_sorted"] & 0xFFFFFFFF).int(), b.gid_sorted)
+    inputs = microbench_gridsample.make_inputs(96, 128, cuda)
+    diffs = microbench_gridsample.max_scaled_diffs(*inputs)
+    assert max(diffs.values()) <= microbench_gridsample.TOL, diffs
+
+
+def test_device_busy_splits_out_the_port_kernels(cuda):
+    """timing.device_busy_ms names K1, K2 and K3 in the profiler's rows:
+    a fwd+bwd shows K1 and K2 busy and no K3, a lone K3 call is all K3."""
+    from gslivm_tpu_torch.tools import exp_block, timing
+    from gslivm_tpu_torch.tools import profile_stages as ps
+
+    args, cam = exp_block.bench_scene(3000, 160, 96, cuda)
+    kw = {**ps.BUDGETS, "max_instances": 1 << 14}
+    busy = timing.device_busy_ms(lambda: ps.kernel_grads(args, cam, kw), device=cuda)
+    k = busy["kernel_busy_ms"]
+    assert k["K1"] > 0 and k["K2"] > 0 and k["K3"] == 0, busy
+    assert k["K1"] + k["K2"] < busy["device_busy_ms"]
+    x = torch.rand(15, 64, 64, device=cuda)
+    busy = timing.device_busy_ms(lambda: blur.blur_cuda(x, losses.gaussian_1d()), device=cuda)
+    assert busy["kernel_busy_ms"]["K3"] == pytest.approx(busy["device_busy_ms"]), busy

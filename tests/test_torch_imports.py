@@ -77,7 +77,58 @@ NEW_MODULES = tuple(f"gslivm_tpu_torch.{m}" for m in (
     # the camera intake (its C++ loaded by frontend.native) and the offline tools
     "frontend.jpeg", "frontend.png", "frontend.imgproc", "tools.calib", "tools.nerf_export",
     "tools.traj_plot", "tools.time_plot", "tools.see_image", "tools.sbs_video",
-    "tools.gp_figure"))
+    "tools.gp_figure",
+    # the stage profilers of the 1080p render and its losses
+    "tools.profile_stages", "tools.profile_binning", "tools.microbench_losses",
+    "tools.microbench_gridsample"))
+
+
+JAX_PKG = PKG.parent / "gslivm_tpu"
+# what the JAX package has and the port has not, by module (file) or
+# module:name, each with the reason
+NO_TWIN = {
+    "ops/blur_pallas.py": "the Pallas blur became K3, csrc/blur.cu, bound in ops/blur.py "
+                          "(blur_many) through kernels.py",
+    "ops/rasterize_pallas.py": "the Pallas rasterizer became K1 and K2, csrc/tile_forward.cu "
+                               "and csrc/tile_backward.cu, bound in ops/rasterize_tiles.py "
+                               "through kernels.py",
+    "pipeline.py:MapperState": "a dataclass that nothing uses",
+}
+
+
+def _public_defs(path) -> list[str]:
+    tree = ast.parse(path.read_text(), str(path))
+    return [n.name for n in tree.body
+            if isinstance(n, ast.FunctionDef | ast.AsyncFunctionDef | ast.ClassDef)
+            and not n.name.startswith("_")]
+
+
+def _top_level_names(path) -> set[str]:
+    names = set()
+    for n in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(n, ast.FunctionDef | ast.AsyncFunctionDef | ast.ClassDef):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names |= {t.id for t in n.targets if isinstance(t, ast.Name)}
+    return names
+
+
+def test_every_public_name_of_the_jax_package_has_a_twin():
+    """Every public top-level function and class of each gslivm_tpu module
+    is defined under the same name in the gslivm_tpu_torch module at the
+    same path; the exceptions are NO_TWIN's, each still without a twin."""
+    missing = set()
+    jax_modules = sorted(JAX_PKG.rglob("*.py"))
+    assert len(jax_modules) >= 40
+    for path in jax_modules:
+        rel = path.relative_to(JAX_PKG).as_posix()
+        twin = PKG / rel
+        if not twin.exists():
+            missing.add(rel)
+            continue
+        have = _top_level_names(twin)
+        missing |= {f"{rel}:{name}" for name in _public_defs(path) if name not in have}
+    assert missing == set(NO_TWIN), sorted(missing ^ set(NO_TWIN))
 
 
 def test_opencv_is_imported_only_for_the_off_path_options():
