@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from ..config import GsOptimParams
 from ..ops import losses as loss_ops
 from ..ops.rasterize import RasterizeSettings, rasterize
+from ..utils import timer
 from ..utils.device import resolve_device
 from .cameras import Camera
 from .gaussian_model import GaussianParams
@@ -423,24 +424,23 @@ def train_step(
     overflow = n_inst = n_chunks = n_walked = as_int(0)
     psnr0 = ssim0 = None
     for i, cam in enumerate(cameras):
-        out = render_params(params, cam, bg_color, settings)
-        renders.append(out)
-        overflow = torch.maximum(overflow, as_int(out.overflow))
-        n_inst = torch.maximum(n_inst, as_int(out.num_instances))
-        n_chunks = torch.maximum(n_chunks, as_int(out.max_nchunks))
-        n_walked = torch.maximum(n_walked, as_int(out.walked_chunks))
-        l1 = loss_ops.l1_loss(out.color, gt_images[i])
-        rs = None if gt_stats is None else (gt_stats[0][i], gt_stats[1][i])
-        ss = loss_ops.ssim(out.color, gt_images[i], ref_stats=rs)
-        img_losses.append((1.0 - opt_params.lambda_dssim) * l1
-                          + opt_params.lambda_dssim * (1.0 - ss))
-        if i == 0:
-            with torch.no_grad():
-                psnr0 = loss_ops.psnr(out.color, gt_images[i])
-            ssim0 = ss.detach()
-    image_total = sum(img_losses)
-
-    s_loss = opt_params.lambda_depth_simi * simi_loss(params, simi)
+        with timer.span("step.render"):
+            out = render_params(params, cam, bg_color, settings)
+            renders.append(out)
+            overflow = torch.maximum(overflow, as_int(out.overflow))
+            n_inst = torch.maximum(n_inst, as_int(out.num_instances))
+            n_chunks = torch.maximum(n_chunks, as_int(out.max_nchunks))
+            n_walked = torch.maximum(n_walked, as_int(out.walked_chunks))
+        with timer.span("step.loss"):
+            l1 = loss_ops.l1_loss(out.color, gt_images[i])
+            rs = None if gt_stats is None else (gt_stats[0][i], gt_stats[1][i])
+            ss = loss_ops.ssim(out.color, gt_images[i], ref_stats=rs)
+            img_losses.append((1.0 - opt_params.lambda_dssim) * l1
+                              + opt_params.lambda_dssim * (1.0 - ss))
+            if i == 0:
+                with torch.no_grad():
+                    psnr0 = loss_ops.psnr(out.color, gt_images[i])
+                ssim0 = ss.detach()
 
     # Under the reference gradient contract (depth cotangents dropped at the
     # rasterizer, rasterizer.cu:79; the silhouette mask enters only through
@@ -450,19 +450,23 @@ def train_step(
     def sg(x):
         return x if settings.depth_grad else x.detach()
 
-    d_loss = torch.zeros((), device=dev)
-    n = len(cameras)
-    for k in range(n_history_pairs):
-        ia = n - 2 * n_history_pairs + 2 * k
-        ib = ia + 1
-        d_loss = d_loss + opt_params.lambda_delta_depth_simi * delta_depth_loss(
-            sg(renders[ia].depth), sg(renders[ia].acc), cameras[ia],
-            sg(renders[ib].depth), sg(renders[ib].acc), cameras[ib])
-
-    total = image_total + s_loss + d_loss
-    total.backward()
-    apply_lr_schedule(optimizer)
-    optimizer.step()
+    with timer.span("step.loss"):
+        image_total = sum(img_losses)
+        s_loss = opt_params.lambda_depth_simi * simi_loss(params, simi)
+        d_loss = torch.zeros((), device=dev)
+        n = len(cameras)
+        for k in range(n_history_pairs):
+            ia = n - 2 * n_history_pairs + 2 * k
+            ib = ia + 1
+            d_loss = d_loss + opt_params.lambda_delta_depth_simi * delta_depth_loss(
+                sg(renders[ia].depth), sg(renders[ia].acc), cameras[ia],
+                sg(renders[ib].depth), sg(renders[ib].acc), cameras[ib])
+        total = image_total + s_loss + d_loss
+    with timer.span("step.backward"):
+        total.backward()
+    with timer.span("step.adam"):
+        apply_lr_schedule(optimizer)
+        optimizer.step()
     return TrainMetrics(
         loss=total.detach(), image_loss=image_total.detach(),
         simi=s_loss.detach(), delta=d_loss.detach(), psnr=psnr0, ssim=ssim0,

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils import timer
 from .binning import CHUNK, BinnedInstances, bin_instances
 from .rasterize_reference import (
     TILE,
@@ -490,9 +491,11 @@ class _RenderFromTable(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, gid_sorted, sorted_start, tile_nchunks,
                 cnt_allowed, cfg, depth_grad):
-        inst = table.t()[gid_sorted.long()].contiguous()
-        tiles, ckpt = composite_tiles(inst, sorted_start, tile_nchunks,
-                                      cnt_allowed, cfg, save_ckpt=True)
+        with timer.span("render.table"):
+            inst = table.t()[gid_sorted.long()].contiguous()
+        with timer.span("render.composite"):
+            tiles, ckpt = composite_tiles(inst, sorted_start, tile_nchunks,
+                                          cnt_allowed, cfg, save_ckpt=True)
         ctx.save_for_backward(inst, sorted_start, cnt_allowed, tiles, ckpt)
         ctx.cfg, ctx.depth_grad, ctx.n = cfg, depth_grad, table.shape[1]
         return tiles
@@ -500,9 +503,10 @@ class _RenderFromTable(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_tiles):
         inst, sorted_start, cnt_allowed, tiles, ckpt = ctx.saved_tensors
-        d_table = composite_tiles_bwd(inst, sorted_start, cnt_allowed,
-                                      g_tiles.contiguous(), tiles, ckpt, ctx.cfg,
-                                      ctx.n, ctx.depth_grad)
+        with timer.span("render.composite_bwd"):
+            d_table = composite_tiles_bwd(inst, sorted_start, cnt_allowed,
+                                          g_tiles.contiguous(), tiles, ckpt, ctx.cfg,
+                                          ctx.n, ctx.depth_grad)
         return d_table, None, None, None, None, None, None
 
 
@@ -514,9 +518,11 @@ def render_from_table(table, binned: BinnedInstances, cfg: TileConfig,
         return _RenderFromTable.apply(table, binned.gid_sorted,
                                       binned.sorted_start, binned.tile_nchunks,
                                       binned.cnt_allowed, cfg, depth_grad)
-    inst = table.t()[binned.gid_sorted.long()].contiguous()
-    return composite_tiles(inst, binned.sorted_start, binned.tile_nchunks,
-                           binned.cnt_allowed, cfg)
+    with timer.span("render.table"):
+        inst = table.t()[binned.gid_sorted.long()].contiguous()
+    with timer.span("render.composite"):
+        return composite_tiles(inst, binned.sorted_start, binned.tile_nchunks,
+                               binned.cnt_allowed, cfg)
 
 
 def bin_tiles(
@@ -555,13 +561,15 @@ def bin_tiles(
         rect_test=block_x != 1 or block_y != 1, contrib_stats=contrib_stats,
         max_chunks=max_chunks_per_tile)
     banded = tile_band is not None or band_rows is not None
-    binned = bin_instances(
-        pre, width, height, max_instances, max_chunks_per_tile,
-        tile_cull=tile_cull, capacity_slack=capacity_slack,
-        block_x=block_x, block_y=block_y,
-        band_start=y0 if banded else None, band_rows=n_rows if banded else None)
-    table = _build_rank_table(pre, binned.dorder, rect_rows=cfg.rect_test,
-                              y_shift=y0 * cfg.ph)
+    with timer.span("render.binning"):
+        binned = bin_instances(
+            pre, width, height, max_instances, max_chunks_per_tile,
+            tile_cull=tile_cull, capacity_slack=capacity_slack,
+            block_x=block_x, block_y=block_y,
+            band_start=y0 if banded else None, band_rows=n_rows if banded else None)
+    with timer.span("render.table"):
+        table = _build_rank_table(pre, binned.dorder, rect_rows=cfg.rect_test,
+                                  y_shift=y0 * cfg.ph)
     return table, binned, cfg
 
 
@@ -656,11 +664,12 @@ def rasterize_tiles(
     if bg_color is None:
         bg_color = torch.ones(3, dtype=means.dtype, device=means.device)
 
-    pre = preprocess(
-        means, scales, quats, opacities, shs, camera,
-        sh_degree=sh_degree, scale_modifier=scale_modifier,
-        active_mask=active_mask,
-    )
+    with timer.span("render.preprocess"):
+        pre = preprocess(
+            means, scales, quats, opacities, shs, camera,
+            sh_degree=sh_degree, scale_modifier=scale_modifier,
+            active_mask=active_mask,
+        )
     img, binned, cfg = render_tiles_raw(
         pre, W, H, depth_grad=depth_grad, max_instances=max_instances,
         max_chunks_per_tile=max_chunks_per_tile, tile_cull=tile_cull,

@@ -55,6 +55,7 @@ from .models.cameras import Camera
 from .ops import gp3d
 from .ops import losses as loss_ops
 from .ops.rasterize import RasterizeSettings, _resolve_backend
+from .utils import timer
 from .utils.device import resolve_device
 
 
@@ -118,6 +119,10 @@ class IncrementalMapper:
         self.last_overflow = 0
         self._overflow_streak = 0
         self.overflow_escalations = 0
+        # feedback rows read, and those whose render was truncated (binning
+        # overflowed): the steps that trained on a truncated render
+        self.feedback_steps = 0
+        self.truncated_steps = 0
         # feedback budget fit (the analog of CUDA's exact num_rendered
         # allocation, rasterizer_impl.cu:277): once the measured expansion
         # is known the loose default budgets shrink to the scene (+ margin),
@@ -161,9 +166,31 @@ class IncrementalMapper:
     # ------------------------------------------------------------------
 
     def add_frame(self, frame: Frame) -> dict:
-        t0 = _time.perf_counter()
-        div = self.gpmap.divide_points(frame.points_world)
-        t1 = _time.perf_counter()
+        secs: dict[str, float] = {}
+        with timer.span("ingest"):
+            with timer.span("ingest.divide", secs):
+                div = self.gpmap.divide_points(frame.points_world)
+            with timer.span("ingest.gp", secs):
+                error = self._gp_ingest(div)
+            with timer.span("ingest.colorize", secs):
+                new = self._colorize_pool(frame)
+            with timer.span("ingest.append", secs):
+                inserted = self._append(*new)
+            with timer.span("ingest.stage", secs):
+                active = self._stage_keyframe(frame)
+        self.ingest_seconds = secs
+        return {
+            "inserted": inserted,
+            "active": active,
+            "voxels": self.gpmap.stats(),
+            "keyframes": len(self.cameras),
+            "overflow_gp": int(error.sum()),
+            "pending_color": len(self._pending_color),
+        }
+
+    def _gp_ingest(self, div) -> np.ndarray:
+        """The GP over the divided batch: loss anchors and the pending
+        colorization pool. Returns the per-voxel GP error flags."""
         res = gp3d.gp_forward(div.batch, self.cfg.gp)
         # ONE wait for every GP output the host consumes
         means, covs, reopen, error, upd_var, lp, bmask = _to_host(
@@ -192,12 +219,14 @@ class IncrementalMapper:
                 self._pending_color[h] = [
                     means[i], covs[i], 0,
                     np.ones(means.shape[1], bool)]  # gaussians still pending
-        t2 = _time.perf_counter()
+        return error
 
-        # colorize the ENTIRE pool against this frame in one batched call;
-        # insert voxels that are visible now, keep the unseen remainder
-        # until its age cap (GpParams.pending_colorize_max_age, the
-        # documented deviation from the reference's insert-once)
+    def _colorize_pool(self, frame: Frame):
+        """Colorize the ENTIRE pool against this frame in one batched call;
+        returns the voxels visible now (xyz, rgb, cov lists and (hash,
+        count) ranges) and keeps the unseen remainder until its age cap
+        (GpParams.pending_colorize_max_age, the documented deviation from
+        the reference's insert-once)."""
         new_xyz, new_rgb, new_cov, ranges = [], [], [], []
         max_age = self.cfg.gp.pending_colorize_max_age
         if self._pending_color:
@@ -226,35 +255,39 @@ class IncrementalMapper:
                 entry[2] += 1
                 if strict or not entry[3].any() or entry[2] > max(max_age, 0):
                     del self._pending_color[h]
-        t3 = _time.perf_counter()
+        return new_xyz, new_rgb, new_cov, ranges
 
-        inserted = 0
-        if new_xyz:
-            xyz = np.concatenate(new_xyz)
-            m = xyz.shape[0]
-            start = int(self.params.n_active)
-            old_cap = self.params.capacity
-            gm.ensure_capacity(self.params, m)
-            if self.params.capacity != old_cap:
-                training.grow_opt_state(self.optimizer, old_cap, self.params.capacity)
+    def _append(self, new_xyz, new_rgb, new_cov, ranges) -> int:
+        """Append the colorized gaussians (growing the capacity and Adam's
+        state) and register their voxel ranges; returns how many."""
+        if not new_xyz:
+            return 0
+        xyz = np.concatenate(new_xyz)
+        m = xyz.shape[0]
+        start = int(self.params.n_active)
+        old_cap = self.params.capacity
+        gm.ensure_capacity(self.params, m)
+        if self.params.capacity != old_cap:
+            training.grow_opt_state(self.optimizer, old_cap, self.params.capacity)
 
-            def dev(a):
-                return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
 
-            batch = gm.PointBatch(
-                xyz=dev(xyz), rgb=dev(np.concatenate(new_rgb)),
-                cov=dev(np.concatenate(new_cov)),
-                mask=torch.ones(m, dtype=torch.bool, device=self.device))
-            gm.append_points(self.params, batch, self.cfg.gs.scale_factor)
-            for h, cnt in ranges:
-                if not self.registry.insert(h, start, cnt):
-                    # deferred completion of a partially-inserted voxel
-                    self.registry.append_range(h, start, cnt)
-                start += cnt
-            inserted = m
-        t4 = _time.perf_counter()
+        batch = gm.PointBatch(
+            xyz=dev(xyz), rgb=dev(np.concatenate(new_rgb)),
+            cov=dev(np.concatenate(new_cov)),
+            mask=torch.ones(m, dtype=torch.bool, device=self.device))
+        gm.append_points(self.params, batch, self.cfg.gs.scale_factor)
+        for h, cnt in ranges:
+            if not self.registry.insert(h, start, cnt):
+                # deferred completion of a partially-inserted voxel
+                self.registry.append_range(h, start, cnt)
+            start += cnt
+        return m
 
-        # keyframe gating (compareStatesImageAdd, thresholds map_options)
+    def _stage_keyframe(self, frame: Frame) -> int:
+        """Keyframe gating (compareStatesImageAdd, thresholds map_options)
+        and the start of training; returns the active gaussians."""
         if self._is_keyframe(frame.camera):
             self.cameras.append(frame.camera)
             gt = np.asarray(frame.image, np.float32).transpose(2, 0, 1) / 255.0
@@ -273,18 +306,7 @@ class IncrementalMapper:
             self.started = True  # is_gs_started (lioOptimization.cpp:1426-1443)
 
         self._simi_cache = None  # anchors and/or registry changed
-        t5 = _time.perf_counter()
-        self.ingest_seconds = {"divide": t1 - t0, "gp": t2 - t1, "colorize": t3 - t2,
-                               "append": t4 - t3, "stage": t5 - t4}
-
-        return {
-            "inserted": inserted,
-            "active": active,
-            "voxels": self.gpmap.stats(),
-            "keyframes": len(self.cameras),
-            "overflow_gp": int(error.sum()),
-            "pending_color": len(self._pending_color),
-        }
+        return active
 
     def _is_keyframe(self, camera: Camera) -> bool:
         R = camera.R_cw.detach().cpu().numpy()
@@ -371,43 +393,54 @@ class IncrementalMapper:
     def train_iteration(self) -> training.TrainMetrics | None:
         if not self.started or not self.cameras:
             return None
-        curr, hist_pairs = self._sample_cameras()
-        cam_idx = curr + [i for pair in hist_pairs for i in pair]
-        cams = [self.cameras[i] for i in cam_idx]
-        # device-resident stack: no per-iteration upload of the GT images
-        gts = torch.stack([self._gt_device[i] for i in cam_idx])
-        gt_stats = (torch.stack([self._gt_stats[i][0] for i in cam_idx]),
-                    torch.stack([self._gt_stats[i][1] for i in cam_idx]))
+        with timer.span("train"):
+            with timer.span("train.sample"):
+                curr, hist_pairs = self._sample_cameras()
+                cam_idx = curr + [i for pair in hist_pairs for i in pair]
+                cams = [self.cameras[i] for i in cam_idx]
+                # device-resident stack: no per-iteration upload of the GT images
+                gts = torch.stack([self._gt_device[i] for i in cam_idx])
+                gt_stats = (torch.stack([self._gt_stats[i][0] for i in cam_idx]),
+                            torch.stack([self._gt_stats[i][1] for i in cam_idx]))
+                simi = self._simi_inputs()
+            with timer.span("train.step"):
+                metrics = training.train_step(
+                    self.params, self.optimizer, cams, gts, simi,
+                    opt_params=self.cfg.gs, settings=self.settings,
+                    n_history_pairs=len(hist_pairs), bg_color=self._bg, gt_stats=gt_stats)
+            self.iter += 1
+            with timer.span("train.feedback"):
+                self._read_feedback(metrics)
+            # pruning lifecycle (completes the reference's never-called
+            # prune_optimizer, gaussian.cu:430)
+            pi = self.cfg.gs.prune_interval
+            if pi > 0 and self.iter % pi == 0:
+                with timer.span("train.prune"):
+                    self.prune_map()
+        return metrics
 
-        metrics = training.train_step(
-            self.params, self.optimizer, cams, gts, self._simi_inputs(),
-            opt_params=self.cfg.gs, settings=self.settings,
-            n_history_pairs=len(hist_pairs), bg_color=self._bg, gt_stats=gt_stats)
-        self.iter += 1
-
-        # Budget feedback is DEFERRED and BATCHED: the metrics of the last
-        # feedback_interval steps are read together, in ONE packed copy.
-        # While budgets are known-broken (_feedback_hot) every step is read.
+    def _read_feedback(self, metrics: training.TrainMetrics):
+        """Budget feedback is DEFERRED and BATCHED: the metrics of the last
+        feedback_interval steps are read together, in ONE packed copy.
+        While budgets are known-broken (_feedback_hot) every step is read.
+        Every row read is counted (feedback_steps), and those whose binning
+        overflowed (truncated_steps), before the budgets take them."""
         self._pending_feedback.append(metrics)
         interval = 1 if self._feedback_hot else self.feedback_interval
-        if len(self._pending_feedback) >= interval:
-            pending, self._pending_feedback = self._pending_feedback, []
-            packed = torch.stack([
-                torch.stack([m.overflow, m.num_instances, m.max_nchunks])
-                for m in pending]).cpu().numpy()
-            for row in packed:
-                esc = self.overflow_escalations
-                self._ingest_budget_feedback(*(int(v) for v in row))
-                if self.overflow_escalations != esc:
-                    # the rest of the batch predates the new budgets
-                    break
-
-        # pruning lifecycle (completes the reference's never-called
-        # prune_optimizer, gaussian.cu:430)
-        pi = self.cfg.gs.prune_interval
-        if pi > 0 and self.iter % pi == 0:
-            self.prune_map()
-        return metrics
+        if len(self._pending_feedback) < interval:
+            return
+        pending, self._pending_feedback = self._pending_feedback, []
+        packed = torch.stack([
+            torch.stack([m.overflow, m.num_instances, m.max_nchunks])
+            for m in pending]).cpu().numpy()
+        self.feedback_steps += len(packed)
+        self.truncated_steps += int((packed[:, 0] > 0).sum())
+        for row in packed:
+            esc = self.overflow_escalations
+            self._ingest_budget_feedback(*(int(v) for v in row))
+            if self.overflow_escalations != esc:
+                # the rest of the batch predates the new budgets
+                break
 
     def _ingest_budget_feedback(self, overflow: int, num_instances: int,
                                 max_nchunks: int):

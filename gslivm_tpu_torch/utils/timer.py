@@ -1,6 +1,5 @@
 """Named-section wall-clock timing with log_time.txt-format dumps (the
-port's own copy of gslivm_tpu/utils/timer.py; `device_memory_mb` reads
-`torch.cuda.memory_stats` and `DeviceTrace` runs `torch.profiler`).
+port's own copy of gslivm_tpu/utils/timer.py), and the program's spans.
 
 Behavioral spec: reference `src/common/timer/timer.{h,cc}` — ~25 named
 sections are wrapped across the pipeline via Timer::Evaluate(log_time,
@@ -14,18 +13,26 @@ DumpIntoFile (timer.cc:12-45) writes:
 The format is preserved so the reference's `python/plot_all_time.py`
 tooling parses our dumps unchanged. Host timers measure launch + blocking
 sections exactly like the reference's CPU-side scoping; CUDA work a section
-queues without waiting lands in the next section that waits. Pair them with
-`DeviceTrace` for the device timeline.
+queues without waiting lands in the next section that waits.
+
+Spans (`span`) mark the layer boundaries of the mapper's frame, named by
+layer and stage (`train.step`, `step.backward`, `render.binning`, ...).
+They are off until `tracing(True)`: an off span costs one flag check and
+keeps nothing. On, each name keeps its count, total host ns and self ns
+(the total less its child spans' totals; parents are tracked per thread),
+read by `read()` and cleared by `reset()`; while a torch profiler runs, a
+span also opens `record_function("gslivm.<name>")`, so the range sits on
+the profiler's clock beside the device work it launched.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import threading
 import time
 from collections import OrderedDict
 
-import torch
+import torch.autograd.profiler as _profiler
 
 
 class Timer:
@@ -101,48 +108,86 @@ class Timer:
         cls._records = OrderedDict()
 
 
-def device_memory_mb() -> dict:
-    """Per-card memory in MB from `torch.cuda.memory_stats` (the caching
-    allocator's bytes in use and their peak) — the listen_odom.py
-    nvidia-smi analog (python/listen_odom.py:15-60 samples GPU memory per
-    odometry frame). {} where there is no card."""
-    out = {}
-    if not torch.cuda.is_available():
-        return out
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {
-            "bytes_in_use_mb": round(stats.get("allocated_bytes.all.current", 0) / 2**20, 1),
-            "peak_bytes_mb": round(stats.get("allocated_bytes.all.peak", 0) / 2**20, 1),
-        }
-    return out
+PREFIX = "gslivm."  # the profiler ranges' prefix
+
+_on = False
+_lock = threading.Lock()
+_local = threading.local()
+_stats: dict[str, list[int]] = {}  # name -> [count, total ns, self ns]
+_OFF = contextlib.nullcontext()
 
 
-class DeviceTrace:
-    """torch.profiler trace scope over the host and, where there is a card,
-    CUDA activity; on exit writes `<logdir>/trace.json` (chrome trace) —
-    the chrome-trace analog the reference lacks (SURVEY §5 'no
-    nvtx/chrome-trace'). `self.profile` keeps the profiler for
-    key_averages()."""
+def tracing(on: bool = True):
+    """Turn the spans on or off (off by default)."""
+    global _on
+    _on = bool(on)
 
-    def __init__(self, logdir: str):
-        self.logdir = logdir
-        self.profile = None
+
+def read() -> dict[str, dict[str, int]]:
+    """Each span's count, total host ns and self ns since the last reset."""
+    with _lock:
+        return {k: {"count": c, "total_ns": t, "self_ns": s} for k, (c, t, s) in _stats.items()}
+
+
+def reset():
+    with _lock:
+        _stats.clear()
+
+
+def span(name: str, seconds: dict | None = None):
+    """A context manager around one stage called `name`. `seconds`, where
+    given, receives the stage's host seconds under the name's last part
+    (`ingest.gp` -> seconds["gp"]) whether the spans are on or off."""
+    if _on:
+        return _Span(name, seconds)
+    if seconds is not None:
+        return _Clock(name, seconds)
+    return _OFF
+
+
+class _Clock:
+    __slots__ = ("key", "seconds", "t0")
+
+    def __init__(self, name: str, seconds: dict):
+        self.key, self.seconds = name.rpartition(".")[2], seconds
 
     def __enter__(self):
-        from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
-
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        self.profile = profile(activities=acts)
-        self.profile.__enter__()
-        return self
+        self.t0 = time.perf_counter_ns()
 
     def __exit__(self, *exc):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.profile.__exit__(*exc)
-        os.makedirs(self.logdir, exist_ok=True)
-        self.profile.export_chrome_trace(os.path.join(self.logdir, "trace.json"))
-        return False
+        self.seconds[self.key] = (time.perf_counter_ns() - self.t0) / 1e9
+
+
+class _Span:
+    __slots__ = ("name", "seconds", "parent", "child_ns", "range", "t0")
+
+    def __init__(self, name: str, seconds: dict | None):
+        self.name, self.seconds = name, seconds
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1] if stack else None
+        self.child_ns = 0
+        stack.append(self)
+        self.range = None
+        if _profiler._is_profiler_enabled:
+            self.range = _profiler.record_function(PREFIX + self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        if self.parent is not None:
+            self.parent.child_ns += ns
+        with _lock:
+            agg = _stats.setdefault(self.name, [0, 0, 0])
+            agg[0] += 1
+            agg[1] += ns
+            agg[2] += ns - self.child_ns
+        if self.seconds is not None:
+            self.seconds[self.name.rpartition(".")[2]] = ns / 1e9

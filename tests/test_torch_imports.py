@@ -93,6 +93,9 @@ NO_TWIN = {
                                "and csrc/tile_backward.cu, bound in ops/rasterize_tiles.py "
                                "through kernels.py",
     "pipeline.py:MapperState": "a dataclass that nothing uses",
+    "utils/timer.py:DeviceTrace": "a trace exporter nothing read; the program's spans "
+                                  "(timer.span) open ranges in the caller's profiler",
+    "utils/timer.py:device_memory_mb": "nothing read it; tools/memlog.py keeps its own",
 }
 
 

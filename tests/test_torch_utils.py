@@ -1,10 +1,7 @@
 """The port's utils against the JAX package's: the Timer's log_time.txt
 dump and its parser, the PNG / PCD / TUM / cfg_args writers (byte-equal
 files), trajectory metrics, debug dumps (tensors and arrays) and the stall
-watchdog, plus the port's torch-side device_memory_mb and DeviceTrace on
-the CPU."""
-
-import os
+watchdog."""
 
 import numpy as np
 import pytest
@@ -115,15 +112,6 @@ def test_watchdog_matches_jax():
         assert not d.check()  # data arrived since the last tick
         assert d.check() and d.check()  # stalled: stop, once
     assert calls == {"t": 1, "j": 1}
-
-
-def test_device_memory_and_trace_on_the_cpu(tmp_path, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert timer.device_memory_mb() == {}
-    with timer.DeviceTrace(str(tmp_path / "trace")) as tr:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-    assert any("mm" in e.key for e in tr.profile.key_averages())
 
 
 @pytest.mark.parametrize("mod", [outputs, joutputs], ids=["port", "jax"])
