@@ -61,8 +61,10 @@ def get_rect(mean2d, radius_xy, grid_x: int, grid_y: int):
     """
     lo = torch.trunc((mean2d - radius_xy) / TILE)
     hi = torch.trunc((mean2d + radius_xy + TILE - 1) / TILE)
-    limits = torch.tensor([grid_x, grid_y], dtype=torch.int32,
-                          device=mean2d.device)
+    # filled on the device (no copy from the host, which a captured step
+    # cannot make)
+    limits = torch.full((2,), grid_x, dtype=torch.int32, device=mean2d.device)
+    limits[1:].fill_(grid_y)
     zero = torch.zeros_like(limits)
     rect_min = torch.clamp(lo.to(torch.int32), zero, limits)
     rect_max = torch.clamp(hi.to(torch.int32), zero, limits)

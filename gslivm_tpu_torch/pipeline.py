@@ -34,6 +34,12 @@ Where the port differs from the JAX mapper:
 Host reads are kept as few as in the JAX mapper: one read of the GP
 outputs and one of the colorize outputs per frame, one packed read per
 budget-feedback batch, none per training iteration.
+
+On the card's tile path a training iteration's renders, losses and
+backward are replayed from one CUDA graph (`training.StepGraph`), the
+port's counterpart of the JAX step's compiled executable: it is captured
+at the second iteration with a new key (`training.step_key`) and replayed
+while the key holds; Adam runs eagerly after it.
 """
 
 from __future__ import annotations
@@ -123,6 +129,14 @@ class IncrementalMapper:
         # overflowed): the steps that trained on a truncated render
         self.feedback_steps = 0
         self.truncated_steps = 0
+        # the step on the card's tile path is replayed from a CUDA graph
+        # (training.StepGraph): iterations that ran eagerly (the first at
+        # each new key, and every one elsewhere), graphs captured, and
+        # iterations replayed
+        self._graph = training.StepGraph()
+        self.eager_steps = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
         # feedback budget fit (the analog of CUDA's exact num_rendered
         # allocation, rasterizer_impl.cu:277): once the measured expansion
         # is known the loose default budgets shrink to the scene (+ margin),
@@ -398,16 +412,32 @@ class IncrementalMapper:
                 curr, hist_pairs = self._sample_cameras()
                 cam_idx = curr + [i for pair in hist_pairs for i in pair]
                 cams = [self.cameras[i] for i in cam_idx]
-                # device-resident stack: no per-iteration upload of the GT images
-                gts = torch.stack([self._gt_device[i] for i in cam_idx])
-                gt_stats = (torch.stack([self._gt_stats[i][0] for i in cam_idx]),
-                            torch.stack([self._gt_stats[i][1] for i in cam_idx]))
+                # device-resident GT images: no per-iteration upload
+                gts = [self._gt_device[i] for i in cam_idx]
+                stats = [self._gt_stats[i] for i in cam_idx]
                 simi = self._simi_inputs()
+                key = staged = None
+                if training.graphable(self.params, self.settings):
+                    key = training.step_key(self.params, cams, len(hist_pairs), simi, True,
+                                            self.cfg.gs, self.settings, self._bg)
+                    staged = self._graph.stage(key, cams, gts, stats, simi)
+                if staged is None:
+                    gts = torch.stack(gts)
+                    gt_stats = (torch.stack([s[0] for s in stats]),
+                                torch.stack([s[1] for s in stats]))
             with timer.span("train.step"):
-                metrics = training.train_step(
-                    self.params, self.optimizer, cams, gts, simi,
-                    opt_params=self.cfg.gs, settings=self.settings,
-                    n_history_pairs=len(hist_pairs), bg_color=self._bg, gt_stats=gt_stats)
+                if staged is None:
+                    metrics = training.train_step(
+                        self.params, self.optimizer, cams, gts, simi,
+                        opt_params=self.cfg.gs, settings=self.settings,
+                        n_history_pairs=len(hist_pairs), bg_color=self._bg, gt_stats=gt_stats)
+                    self.eager_steps += 1
+                else:
+                    metrics, captured = self._graph.run(
+                        self.params, self.cfg.gs, self.settings, len(hist_pairs), self._bg)
+                    training.adam_step(self.optimizer)
+                    self.graph_captures += captured
+                    self.graph_replays += 1
             self.iter += 1
             with timer.span("train.feedback"):
                 self._read_feedback(metrics)

@@ -1,6 +1,7 @@
 """K1 (with its checkpoints), K2, K3 and the tools' kernels T1 and T2 on
 the card against their plain PyTorch versions, the tiles backend's
-gradients against the naive backend's, a few train steps, and the
+gradients against the naive backend's, a few train steps, the step
+replayed from a CUDA graph against the eager step, and the
 incremental mapper (GP ingest, growth, training, pruning), the LIVO front
 end into a card mapper and a card checkpoint, and the camera intake's
 integer ops (JPEG reconstruction, resize, remap) against the CPU, at small
@@ -618,6 +619,212 @@ def test_concurrent_mapper_on_card_drains_and_joins(cuda):
     assert cm.finish() is mapper
     assert cm.frames_mapped == 3 and cm.trained >= 3 and not cm._thread.is_alive()
     assert np.isfinite(float(cm.last_metrics.loss))
+
+
+# K2's atomics sum in run-to-run order: its outputs, and the gradients
+# through them, vary by up to this share of their scale from run to run
+K2_SPREAD = 3.0e-7
+COUNTED = (rasterize_tiles.composite_tiles, rasterize_tiles.composite_tiles_bwd,
+           blur.blur_cuda)
+
+
+def _graph_config():
+    """Three cameras a step from the third keyframe on (window 1: one
+    current camera and one history pair)."""
+    return Config(gp=GpParams(grid=0.5, image_sliding_window=1, curr_cam_per_iter=1,
+                              history_cam_per_iter=1))
+
+
+def _graph_frames(device):
+    return synthetic.make_sequence(n_frames=4, width=96, height=64, points_per_frame=5000,
+                                   device=device)
+
+
+def _grads(params):
+    return [None if p.grad is None else p.grad.clone() for p in params.parameters()]
+
+
+def _assert_grads_match(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (w is None), (what, i)
+        if w is not None and w.numel():
+            assert _scaled(g, w) <= K2_SPREAD, (what, i, _scaled(g, w))
+
+
+def test_graphed_step_matches_the_eager_step_from_one_state(cuda):
+    """From one state and one draw of cameras: the eager step's gradient,
+    then StepGraph's capture (and its replay) and a second replay. Loss
+    and every leaf's .grad agree within K2's spread; each replay hands out
+    metrics in tensors of their own; the launch counters count each
+    replay's K1, K2 (one a render) and K3 (two a render), the capture
+    nothing."""
+    mapper = pipeline.IncrementalMapper(_graph_config(), initial_capacity=4800,
+                                        bootstrap_points=200, device=cuda)
+    for fr in _graph_frames(cuda)[:3]:
+        mapper.add_frame(fr)
+    curr, pairs = mapper._sample_cameras()
+    idx = curr + [i for pr in pairs for i in pr]
+    cams = [mapper.cameras[i] for i in idx]
+    gts = [mapper._gt_device[i] for i in idx]
+    stats = [mapper._gt_stats[i] for i in idx]
+    simi = mapper._simi_inputs()
+    args = (mapper.cfg.gs, mapper.settings, len(pairs), mapper._bg)
+    assert len(cams) == 3 and training.graphable(mapper.params, mapper.settings)
+
+    for p in mapper.params.parameters():
+        p.grad = None
+    eager = training.step_gradients(
+        mapper.params, cams, torch.stack(gts), simi, *args,
+        gt_stats=(torch.stack([s[0] for s in stats]), torch.stack([s[1] for s in stats])))
+    want = _grads(mapper.params)
+
+    sg = training.StepGraph()
+    key = training.step_key(mapper.params, cams, len(pairs), simi, True, mapper.cfg.gs,
+                            mapper.settings, mapper._bg)
+    assert sg.stage(key, cams, gts, stats, simi) is None  # a new key: the eager step
+    assert sg.stage(key, cams, gts, stats, simi) is not None
+    before = [c.launches for c in COUNTED]
+    first, captured = sg.run(mapper.params, *args)
+    got1 = _grads(mapper.params)
+    second, again = sg.run(mapper.params, *args)
+    got2 = _grads(mapper.params)
+    torch.cuda.synchronize()
+    assert captured and not again
+    assert [c.launches - b for c, b in zip(COUNTED, before)] == [6, 6, 12]
+    for m in (first, second):
+        assert abs(float(m.loss) - float(eager.loss)) <= K2_SPREAD * abs(float(eager.loss))
+        for name in ("overflow", "num_instances", "max_nchunks", "walked_chunks"):
+            assert int(getattr(m, name)) == int(getattr(eager, name)), name
+    assert first.loss.data_ptr() != second.loss.data_ptr()
+    _assert_grads_match(got1, want, "capture")
+    _assert_grads_match(got2, want, "replay")
+
+
+class _Eager(training.StepGraph):
+    """A StepGraph that never stages: its mapper steps eagerly."""
+
+    def stage(self, *args):
+        return None
+
+
+def _copy_state(src, dst):
+    """dst's parameters, n_active and Adam state set to src's."""
+    with torch.no_grad():
+        for a, b in zip(src.params.parameters(), dst.params.parameters()):
+            b.copy_(a)
+        dst.params.n_active.copy_(src.params.n_active)
+    for a, b in zip(src.params.parameters(), dst.params.parameters()):
+        if a in src.optimizer.state:
+            dst.optimizer.state[b] = {k: v.clone() for k, v in src.optimizer.state[a].items()}
+
+
+def test_graphed_mapper_matches_an_eager_mapper_across_rekeys(cuda):
+    """24 iterations of a graphed mapper and an eager twin, the twin set to
+    the graphed mapper's state before each: a budget escalation (budgets
+    too small at first), a capacity doubling through add_frame and a
+    prune_map each change the key. Each iteration's loss and .grad agree
+    within K2's spread; the first iteration at each key runs eagerly, the
+    next captures, the rest replay; successive metrics are distinct
+    tensors; the launch counters count one K1 and K2 and two K3 a render."""
+    frames = _graph_frames(cuda)
+    probe = pipeline.IncrementalMapper(_graph_config(), initial_capacity=1 << 16,
+                                       bootstrap_points=200, device=cuda)
+    for fr in frames[:3]:
+        probe.add_frame(fr)
+    full = int(probe.params.n_active)  # a capacity the fourth frame outgrows
+    del probe
+    settings = rasterize.RasterizeSettings(max_instances=2048, max_chunks_per_tile=8)
+    graphed, eager = (pipeline.IncrementalMapper(_graph_config(), initial_capacity=full,
+                                                 settings=settings, bootstrap_points=200,
+                                                 device=cuda) for _ in range(2))
+    eager._graph = _Eager()
+    for fr in frames[:3]:
+        graphed.add_frame(fr)
+        eager.add_frame(fr)
+    assert graphed.params.capacity == full
+    modes, metrics, prev = [], [], None
+    launched = [0, 0, 0]
+    renders = 0
+    for it in range(24):
+        if it == 8:
+            for m in (graphed, eager):
+                m.add_frame(frames[3])
+            assert graphed.params.capacity > full
+        if it == 16:
+            _copy_state(graphed, eager)
+            n0 = int(graphed.params.n_active)
+            cut = float(graphed.params.get_opacity().detach()[:n0, 0].quantile(0.1))
+            assert graphed.prune_map(min_opacity=cut) == eager.prune_map(min_opacity=cut) > 0
+        _copy_state(graphed, eager)
+        state = (graphed.params.capacity, graphed.settings,
+                 tuple(p.data_ptr() for p in graphed.params.parameters()))
+        counts = (graphed.eager_steps, graphed.graph_captures, graphed.graph_replays)
+        before = [c.launches for c in COUNTED]
+        m_g = graphed.train_iteration()
+        m_e = eager.train_iteration()
+        launched = [n + c.launches - b for n, c, b in zip(launched, COUNTED, before)]
+        renders += 3
+        step = [a - b for a, b in zip((graphed.eager_steps, graphed.graph_captures,
+                                       graphed.graph_replays), counts)]
+        modes.append({(1, 0, 0): "eager", (0, 1, 1): "capture", (0, 0, 1): "replay"}[tuple(step)])
+        want = "eager" if state != prev else ("capture" if modes[-2] == "eager" else "replay")
+        assert modes[-1] == want, (it, modes)
+        prev = state
+        assert abs(float(m_g.loss) - float(m_e.loss)) <= K2_SPREAD * abs(float(m_e.loss)), it
+        _assert_grads_match(_grads(graphed.params), _grads(eager.params), it)
+        metrics.append(m_g)
+    torch.cuda.synchronize()
+    assert graphed.overflow_escalations >= 1 and eager.overflow_escalations >= 1
+    assert modes.count("eager") >= 4 and modes.count("replay") >= 8, modes
+    ptrs = [m.loss.data_ptr() for m in metrics]
+    assert len(set(ptrs)) == len(ptrs)
+    # both mappers' iterations, each one K1 and K2 and two K3 a render
+    assert launched == [2 * renders, 2 * renders, 4 * renders]
+
+
+def test_profiled_iterations_with_a_rekey_launch_each_kernel_once_a_render(cuda):
+    """A profiled run of iterations that starts at a new key (eager, then
+    capture and replays): one K1 and one K2 record a render and two K3."""
+    mapper = pipeline.IncrementalMapper(_graph_config(), initial_capacity=4800,
+                                        bootstrap_points=200, device=cuda)
+    for fr in _graph_frames(cuda)[:3]:
+        mapper.add_frame(fr)
+    for _ in range(3):
+        mapper.train_iteration()
+    mapper.settings = mapper.settings._replace(
+        max_chunks_per_tile=mapper.settings.max_chunks_per_tile + 8)
+    torch.cuda.synchronize()
+    counts = (mapper.eager_steps, mapper.graph_captures, mapper.graph_replays)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            mapper.train_iteration()
+        torch.cuda.synchronize()
+    assert (mapper.eager_steps - counts[0], mapper.graph_captures - counts[1],
+            mapper.graph_replays - counts[2]) == (1, 1, 3)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    got = [sum(k in n for n in names) for k in ("tile_forward", "tile_backward", "blur")]
+    assert got == [12, 12, 24], got
+
+
+def test_concurrent_mapper_replays_while_the_front_end_uses_the_card(cuda):
+    """ConcurrentMapper's worker captures and replays while the producer
+    thread keeps the card busy and synchronises: the capture mode lets
+    other threads use the card."""
+    mapper = pipeline.IncrementalMapper(_graph_config(), initial_capacity=4800,
+                                        bootstrap_points=200, device=cuda)
+    cm = pipeline.ConcurrentMapper(mapper, iters_per_frame=6)
+    x = torch.randn(256, 256, device=cuda)
+    for fr in _graph_frames(cuda):
+        cm.submit_frame(fr)
+        for _ in range(20):
+            x = torch.tanh(x @ x)
+            torch.cuda.synchronize()
+    assert cm.finish() is mapper
+    assert mapper.graph_captures >= 1 and mapper.graph_replays >= 1, (
+        mapper.eager_steps, mapper.graph_captures, mapper.graph_replays)
+    assert np.isfinite(float(cm.last_metrics.loss)) and bool(torch.isfinite(x).all())
 
 
 def _livo_on(device, sweeps=3):
